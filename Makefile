@@ -1,5 +1,5 @@
-# Developer entry points. See CLAUDE.md for environment gotchas.
-.PHONY: test test-all bench bench-boot bench-scaling native clean
+# Developer entry points. See CLAUDE.md for how tests and the GPU runs work.
+.PHONY: test test-all smoke bench bench-boot native clean
 
 test:
 	python -m pytest tests/ -q
@@ -7,14 +7,14 @@ test:
 test-all:
 	python -m pytest tests/ -q -m ""
 
+smoke:
+	python chip_smoke.py
+
 bench:
 	python bench.py
 
 bench-boot:
 	python bench_boot.py
-
-bench-scaling:
-	python bench_scaling.py
 
 native:
 	$(MAKE) -C native

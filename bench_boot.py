@@ -1,59 +1,42 @@
 #!/usr/bin/env python
-"""Secondary benchmark: bootstrap throughput/latency artifact (multi-row).
+"""Secondary benchmark: bootstrap and NTRU gate throughput on one GPU.
 
-Config-5 (BASELINE.json): the full blind-rotation pipeline — modulus
-switch, n_lwe CMux external products (exact CRT-NTT backend), sample
-extraction — on one chip.  Rows written to ``BENCH_BOOT_r{PRIMUS_ROUND}.json``:
+Rows (one JSON line each on stdout):
 
-1. TFHE gate bootstrap at the repo's own estimator-validated 128-bit
-   profile (``params.py`` BOOLEAN_128: N=2048, n_lwe=630, L=3, B=2^7 —
-   dims read from the profile so the rows track it), batch 64 — the
-   flagship user-felt number;
-2. the same profile at batch 1 — single-gate latency (ms);
-3. the round-3/4-comparable light config (n_lwe=512, L=2, B=2^8),
-   batch 64 — round-over-round progress tracking;
-4. NTRU blind-rotate us/CMux at the legacy 2^30-tier config (round-4
-   comparable);
-5. NTRU end-to-end NAND gates/s at the named NTRU_128 profile
-   (``params.py``: FINAL geometry, N=1024, q~2^20, dims read from the
-   profile), correctness-checked over the full truth table.
+1. TFHE gate bootstrap (modulus switch, n_lwe CMux external products on
+   the exact CRT-NTT backend, sample extraction) at the estimator-
+   validated 128-bit profile (``params.py`` BOOLEAN_128: N=2048,
+   n_lwe=630, L=3, B=2^7 — dims read from the profile), batch 64;
+2. the same profile at batch 1 — single-gate latency;
+3. NTRU end-to-end NAND gates/s at the named NTRU_128 profile
+   (``params.py``: FINAL geometry, N=1024, q~2^20), correctness-checked
+   over the full truth table.
 
-Timing uses the difference-of-workloads discipline (two rep counts,
-min-per-size, constant dispatch/fetch overhead cancels — CLAUDE.md).
-Not the driver headline (that is bench.py); run manually.
-``scratch/row_b128.py`` (B128_BATCH=128/256) appends peak-throughput
-rows at larger batches, and ``scratch/row_tfhe_lib.py`` the legacy
-TFHE-lib-geometry round-over-round row.
+Every timing ends in ``block_until_ready``; compilation is reported
+apart.  Prints the card's name and power limit; exits non-zero without a
+GPU.  Run manually: ``python bench_boot.py``.
 """
 
 import json
-import os
 import sys
 import time
 
 import numpy as np
 
 
-def _diff_time(run_once, fetch, r1=2, r2=10, tries=3):
-    """(T(r2)-T(r1))/(r2-r1) with per-size minima (CLAUDE.md protocol)."""
+def _time_per_call(run, reps=5):
+    """Seconds per call over ``reps`` back-to-back calls (warm)."""
+    import jax
 
-    def reps(r):
-        t0 = time.perf_counter()
-        out = None
-        for _ in range(r):
-            out = run_once()
-        fetch(out)
-        return time.perf_counter() - t0
-
-    _ = reps(r1)  # warm
-    tas, tbs = [], []
-    for _ in range(tries):
-        tas.append(reps(r1))
-        tbs.append(reps(r2))
-    return max(min(tbs) - min(tas), 1e-9) / (r2 - r1)
+    out = None
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = run()
+    jax.block_until_ready(out)
+    return (time.perf_counter() - t0) / reps
 
 
-def tfhe_row(name, log_n, k, lb, lv, n_lwe, batch, use_mxu, shared=None):
+def tfhe_row(name, log_n, k, lb, lv, n_lwe, batch, shared=None):
     """One TFHE gate-bootstrap row; returns (record, shared_keys)."""
     import jax
     import jax.numpy as jnp
@@ -78,18 +61,11 @@ def tfhe_row(name, log_n, k, lb, lv, n_lwe, batch, use_mxu, shared=None):
             jnp.uint32
         )
         t0 = time.perf_counter()
-        if use_mxu:
-            from primus_fhe_tpu.boot.blind_rotate import make_bootstrap_key_mxu
-
-            bsk = make_bootstrap_key_mxu(
-                k3, lwe_secret, glwe_secret, basis, gauss, conv
-            )
-        else:
-            bsk = make_bootstrap_key(k3, lwe_secret, glwe_secret, basis, gauss, conv)
+        bsk = make_bootstrap_key(k3, lwe_secret, glwe_secret, basis, gauss, conv)
         jax.block_until_ready(bsk)
         print(
             f"[bench_boot] {name}: bsk built in {time.perf_counter()-t0:.1f}s "
-            f"primes={conv.primes} path={'mxu' if use_mxu else 'ref'}",
+            f"primes={conv.primes}",
             file=sys.stderr,
         )
         shared = (basis, conv, bsk, lwe_secret, glwe_secret, k4)
@@ -110,9 +86,7 @@ def tfhe_row(name, log_n, k, lb, lv, n_lwe, batch, use_mxu, shared=None):
     out = jax.block_until_ready(run(cts))
     compile_s = time.perf_counter() - t0
 
-    dt = _diff_time(
-        lambda: run(cts), lambda o: float(jnp.sum(o, dtype=jnp.uint32))
-    )
+    dt = _time_per_call(lambda: run(cts))
     rate = batch / dt
 
     ph = np.asarray(phase_torus32(out, glwe_secret.reshape(-1))).astype(np.int64)
@@ -140,70 +114,12 @@ def tfhe_row(name, log_n, k, lb, lv, n_lwe, batch, use_mxu, shared=None):
         "platform": jax.devices()[0].platform,
         "device": jax.devices()[0].device_kind,
         "sign_check": "ok",
-        "path": "cmux-mxu" if use_mxu else "cmux-fused-vpu",
+        "compile_s": compile_s,
     }
     return record, shared
 
 
-def ntru_cmux_row(use_mxu):
-    """Round-4-comparable NTRU blind-rotate us/CMux (legacy 2^30 tier)."""
-    import jax
-    import jax.numpy as jnp
-
-    from primus_fhe_tpu.boot import ntru_blind_rotate as nb
-    from primus_fhe_tpu.distr.sampling import DiscreteGaussian
-    from primus_fhe_tpu.utils.primes import next_ntt_prime
-
-    log_n = int(os.environ.get("NTRU_LOG_N", 10))
-    n = 1 << log_n
-    q = next_ntt_prime(30, log_n)
-    lv = int(os.environ.get("NTRU_LEVEL", 3))
-    n_lwe = int(os.environ.get("NTRU_NLWE", 512))
-    batch = int(os.environ.get("NTRU_BATCH", 16))
-
-    gauss = DiscreteGaussian(3.2)
-    ctx = nb.NtruContext(log_n, q, 10, lv)
-    kk = jax.random.split(jax.random.PRNGKey(5), 3)
-    sk = nb.ntru_keygen(kk[0], ctx)
-    secret = (jax.random.bits(kk[1], (n_lwe,), dtype=jnp.uint32) & 1).astype(
-        jnp.uint32
-    )
-    nt_mxu = use_mxu and log_n >= 8
-    if nt_mxu:
-        evk = nb.make_ntru_bootstrap_key_mxu(kk[2], ctx, sk, secret, gauss)
-    else:
-        evk = nb.make_ntru_bootstrap_key(kk[2], ctx, sk, secret, gauss)
-    test_poly = nb.ntru_test_polynomial(n, q, ctx.delta)
-    rng = np.random.default_rng(11)
-    lwe = jnp.asarray(
-        rng.integers(0, 2 * n, size=(batch, n_lwe + 1), dtype=np.int64)
-    ).astype(jnp.int32)
-
-    run = jax.jit(lambda c: nb.ntru_blind_rotate(ctx, evk, c, test_poly))
-    _ = jax.block_until_ready(run(lwe))
-    dt = _diff_time(lambda: run(lwe), lambda o: float(jnp.sum(o, dtype=jnp.uint32)))
-    ms_per_cmux = dt / (batch * n_lwe) * 1e3
-    print(
-        f"[bench_boot] ntru cmux: {dt*1e3:.1f}ms/batch "
-        f"{ms_per_cmux*1e3:.3f}us/CMux",
-        file=sys.stderr,
-    )
-    return {
-        "config": "ntru-cmux-legacy",
-        "metric": (
-            f"NTRU blind-rotate CMux (N={n}, q=2^30 tier, L={lv}, "
-            f"n_lwe={n_lwe}, batch={batch})"
-        ),
-        "value": ms_per_cmux,
-        "unit": "ms/CMux",
-        "rotations_per_s": batch / dt,
-        "platform": jax.devices()[0].platform,
-        "device": jax.devices()[0].device_kind,
-        "path": "ntru-cmux-mxu" if nt_mxu else "ntru-pallas",
-    }
-
-
-def ntru_gate_row(use_mxu, batch=16):
+def ntru_gate_row(batch=16):
     """End-to-end NTRU NAND gates/s at the named NTRU_128 profile."""
     import jax
     import jax.numpy as jnp
@@ -225,12 +141,7 @@ def ntru_gate_row(use_mxu, batch=16):
     sk = nb.ntru_keygen(k1, ctx)
     s = (jax.random.bits(k2, (p.lwe_dim,), dtype=jnp.uint32) & 1).astype(jnp.uint32)
     t0 = time.perf_counter()
-    if use_mxu and p.log_n >= 8:
-        evk = nb.make_ntru_bootstrap_key_mxu(k3, ctx, sk, s, gauss)
-        path = "ntru-cmux-mxu"
-    else:
-        evk = nb.make_ntru_bootstrap_key(k3, ctx, sk, s, gauss)
-        path = "ntru-pallas"
+    evk = nb.make_ntru_bootstrap_key(k3, ctx, sk, s, gauss)
     # ksk rows are LWE samples under s: their noise must carry the LWE
     # layer's security on its own (params.py NtruParams.lwe_sigma)
     ksk = nb.make_ntru_keyswitch_key(
@@ -270,9 +181,7 @@ def ntru_gate_row(use_mxu, batch=16):
 
     run = jax.jit(lambda a, b: ntru_nand(ctx, evk, ksk, ks_basis, a, b))
     out = jax.block_until_ready(run(c1, c2))
-    dt = _diff_time(
-        lambda: run(c1, c2), lambda o: float(jnp.sum(o, dtype=jnp.uint32))
-    )
+    dt = _time_per_call(lambda: run(c1, c2))
 
     # decrypt and check the full truth table
     outs = np.asarray(out).astype(np.int64)
@@ -305,51 +214,32 @@ def ntru_gate_row(use_mxu, batch=16):
         "truth_table_check": "ok",
         "platform": jax.devices()[0].platform,
         "device": jax.devices()[0].device_kind,
-        "path": path,
     }
 
 
 def main():
-    import jax
-
-    use_mxu = (
-        os.environ.get("BOOT_PATH", "mxu") == "mxu"
-        and jax.default_backend() == "tpu"
-    )
-    rows = []
-
-    # 1+2: the estimator-validated 128-bit profile (batch 64) +
-    # single-gate latency (batch 1); dims come from params.BOOLEAN_128
     from primus_fhe_tpu.params import BOOLEAN_128 as BP
+    from primus_fhe_tpu.utils import runtime
+
+    runtime.require_gpu()
+    runtime.enable_compile_cache()
+    print(f"[bench_boot] card: {runtime.card_info()}", file=sys.stderr)
 
     rec, shared = tfhe_row(
         "std128-b64", BP.log_n, BP.glwe_dim, BP.log_basis, BP.level,
-        BP.lwe_dim, 64, use_mxu,
+        BP.lwe_dim, 64,
     )
-    rows.append(rec)
+    rows = [rec]
     rec1, _ = tfhe_row(
         "std128-b1", BP.log_n, BP.glwe_dim, BP.log_basis, BP.level,
-        BP.lwe_dim, 1, use_mxu, shared=shared,
+        BP.lwe_dim, 1, shared=shared,
     )
     rec1["metric"] = rec1["metric"].replace("batched gate bootstraps/s",
                                             "single-gate bootstrap latency")
     rows.append(rec1)
-
-    # 3: round-3/4-comparable light config
-    rec, _ = tfhe_row("light-b64", 10, 1, 8, 2, 512, 64, use_mxu)
-    rows.append(rec)
-
-    # 4: NTRU us/CMux (round-4 comparable)
-    rows.append(ntru_cmux_row(use_mxu))
-
-    # 5: NTRU_128 end-to-end NAND gates
-    rows.append(ntru_gate_row(use_mxu))
-
+    rows.append(ntru_gate_row())
     for r in rows:
         print(json.dumps(r))
-    rnd = os.environ.get("PRIMUS_ROUND", "05")
-    with open(f"BENCH_BOOT_r{rnd}.json", "w") as f:
-        json.dump(rows, f, indent=1)
 
 
 if __name__ == "__main__":

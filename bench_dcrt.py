@@ -4,14 +4,15 @@
 The config-5 RNS-bootstrap inner loop: one CMux = monomial rotate +
 NTT-domain diff + full gadget product (compose -> multi-limb signed
 decompose -> centered respread -> per-modulus NTT -> pointwise MAC).
-N=1024, 2x50-bit moduli, L=4 multi-limb levels, batch of ciphertexts —
-the shape VERDICT r1 measured at 0.30 ms/CMux (one ciphertext at a time).
+N=1024, 2x50-bit moduli, L=4 multi-limb levels, batch of ciphertexts.
 
-Prints one JSON line: CMux/s (batch-aggregate) plus ms per CMux-step.
-Not the driver headline (that is bench.py); run manually.
+Prints the card's name and power limit, then one JSON line: CMux/s
+(batch-aggregate) plus ms per CMux-step.  Exits non-zero without a GPU.
+Run manually: ``python bench_dcrt.py``.
 """
 
 import json
+import os
 import sys
 import time
 
@@ -26,9 +27,12 @@ def main():
     from primus_fhe_tpu.decompose import BigUintApproxSignedBasis
     from primus_fhe_tpu.numeric import U64, to_u64_pair
     from primus_fhe_tpu.rns import RNSBase64
-    from primus_fhe_tpu.transforms.dcrt import build_dcrt_plan64, dcrt_forward64
+    from primus_fhe_tpu.transforms.dcrt import build_dcrt_plan64
+    from primus_fhe_tpu.utils import runtime
 
-    import os
+    dev = runtime.require_gpu()
+    runtime.enable_compile_cache()
+    print(f"[bench_dcrt] card: {runtime.card_info()}", file=sys.stderr)
 
     LOG_N = int(os.environ.get("DCRT_LOG_N", 10))
     N = 1 << LOG_N
@@ -63,17 +67,16 @@ def main():
 
     @jax.jit
     def run(lwe, acc):
-        out = dcrt_blind_rotate_batched(plan, basis, base, bsk, lwe, acc)
-        return jnp.sum(out.lo ^ out.hi, dtype=jnp.uint32)
+        return dcrt_blind_rotate_batched(plan, basis, base, bsk, lwe, acc)
 
     t0 = time.perf_counter()
-    _ = float(run(lwe, acc0))
+    jax.block_until_ready(run(lwe, acc0))
     print(f"[bench_dcrt] compile+first {time.perf_counter()-t0:.1f}s", file=sys.stderr)
 
     best = None
     for _i in range(3):
         t0 = time.perf_counter()
-        _ = float(run(lwe, acc0))
+        jax.block_until_ready(run(lwe, acc0))
         dt = time.perf_counter() - t0
         best = dt if best is None else min(best, dt)
     cmux = N_LWE * BATCH
@@ -84,13 +87,9 @@ def main():
         "unit": "cmux/s",
         "ms_per_batched_step": ms_per_step,
         "ms_per_cmux": best / cmux * 1e3,
+        "device": {"platform": dev.platform, "kind": dev.device_kind},
     }
     print(json.dumps(record))
-    import os
-
-    rnd = os.environ.get("PRIMUS_ROUND", "03")
-    with open(f"BENCH_DCRT_r{rnd}.json", "w") as f:
-        json.dump(record, f, indent=1)
 
 
 if __name__ == "__main__":

@@ -18,9 +18,11 @@ import numpy as np
 from primus_fhe_tpu import params as P
 from primus_fhe_tpu.boot.gates import FALSE_MU, TRUE_MU, and_gate, nand_gate, or_gate
 from primus_fhe_tpu.lattice.lwe import phase_torus32
+from primus_fhe_tpu.utils.runtime import enable_compile_cache
 
 
 def main():
+    enable_compile_cache()
     t0 = time.time()
     ctx = P.make_context(jax.random.PRNGKey(0), P.TOY)
     print(f"keys generated in {time.time()-t0:.1f}s", flush=True)

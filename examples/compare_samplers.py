@@ -16,9 +16,11 @@ sys.path.insert(0, ".")
 
 from primus_fhe_tpu.distr.sampling import DiscreteGaussian
 from primus_fhe_tpu.distr.stats import sample_moments
+from primus_fhe_tpu.utils.runtime import enable_compile_cache
 
 
 def main():
+    enable_compile_cache()
     sigma = float(sys.argv[1]) if len(sys.argv) > 1 else 3.2
     n = 200_000
     dev = np.asarray(

@@ -7,8 +7,8 @@ FINAL-style bootstrap (modulus switch -> NTRU blind rotation -> extract
 -> key switch), decrypt, and check the truth tables.
 
 Run: python examples/ntru_gates_profile.py
-(CPU ~4 min, dominated by key generation at the full n_lwe=700; set
-PRIMUS_NTRU_SMALL=1 for an n_lwe=16 smoke run.)
+(runs on JAX's default device; on the CPU key generation at the full
+n_lwe=700 dominates — set PRIMUS_NTRU_SMALL=1 for an n_lwe=16 smoke run.)
 """
 
 import os
@@ -18,13 +18,6 @@ import time
 sys.path.insert(0, ".")
 
 import jax
-
-if os.environ.get("PRIMUS_NTRU_TPU") != "1":
-    try:
-        jax.config.update("jax_platforms", "cpu")
-    except RuntimeError:
-        pass
-
 import jax.numpy as jnp
 import numpy as np
 
@@ -43,9 +36,11 @@ from primus_fhe_tpu.boot.ntru_gates import (
 )
 from primus_fhe_tpu.distr.sampling import DiscreteGaussian, sample_uniform
 from primus_fhe_tpu.params import NTRU_128, make_ntru_context
+from primus_fhe_tpu.utils.runtime import enable_compile_cache
 
 
 def main():
+    enable_compile_cache()
     p = NTRU_128
     n_lwe = 16 if os.environ.get("PRIMUS_NTRU_SMALL") == "1" else p.lwe_dim
     ctx, ks_basis = make_ntru_context(p)

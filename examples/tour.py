@@ -1,7 +1,9 @@
 #!/usr/bin/env python
 """Capability tour: every layer of the framework in one runnable script.
 
-Run: python examples/tour.py   (CPU: ~2 min; prints one line per layer)
+Run: python examples/tour.py   (prints one line per layer; the
+multi-device steps need >= 2 devices, e.g. on the CPU with
+JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=2)
 """
 
 import sys
@@ -9,23 +11,11 @@ import time
 
 sys.path.insert(0, ".")
 
-import os
-
 import jax
-
-# Decide the platform BEFORE anything initializes a backend (a switch after
-# init is a silent no-op — CLAUDE.md).  Default: CPU with a 2-device mesh so
-# the sharded steps run; set PRIMUS_TOUR_TPU=1 to tour on the accelerator
-# (the multi-device steps then need >= 2 real chips or they skip).
-if os.environ.get("PRIMUS_TOUR_TPU") != "1":
-    try:
-        jax.config.update("jax_platforms", "cpu")
-        jax.config.update("jax_num_cpu_devices", 2)
-    except RuntimeError:  # backend already initialized (e.g. under pytest)
-        pass
-
 import jax.numpy as jnp
 import numpy as np
+
+from primus_fhe_tpu.utils.runtime import enable_compile_cache
 
 
 def step(name):
@@ -33,6 +23,7 @@ def step(name):
 
 
 def main():
+    enable_compile_cache()
     rng = np.random.default_rng(0)
 
     step("1. exact u32-limb arithmetic: 64x64->128 multiply")

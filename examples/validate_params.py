@@ -3,7 +3,7 @@
 Runs the in-repo core-SVP estimator (``utils/security.py`` — primal uSVP
 + dual attack, anchored on published Kyber/NewHope numbers) on every
 named parameter set and checks each gate noise budget with the
-``noise.py`` variance model.  Pure host math — no TPU needed.
+``noise.py`` variance model.  Pure host math — no accelerator needed.
 
 Run: python examples/validate_params.py
 """

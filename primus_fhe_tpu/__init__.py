@@ -1,15 +1,15 @@
-"""primus-fhe-tpu: a TPU-native FHE primitive framework.
+"""primus-fhe-tpu: an exact-integer lattice-FHE primitive framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capability surface of
+A from-scratch JAX/XLA re-design of the capability surface of
 ``primus-labs/primus-fhe`` (see ``SURVEY.md``): exact limb-decomposed modular
 integer arithmetic (Barrett/Shoup lazy reduction), negacyclic NTT/INTT over
 32/62-bit primes, torus negacyclic transforms, RNS multi-modulus polynomial
 rings with fast basis conversion, approximate signed gadget decomposition,
 FHE noise samplers, and lattice ciphertext operations (LWE/RLWE/GLWE/GLev/
 GGSW/RGSW/NTRU, TFHE external product, LWE sample extraction) composing into
-a blind-rotation bootstrapping pipeline sharded over a TPU mesh.
+a blind-rotation bootstrapping pipeline sharded over a device mesh.
 
-Layer map (mirrors SURVEY.md section 1, re-designed TPU-first):
+Layer map (mirrors SURVEY.md section 1, re-designed for JAX):
 
 ====================  =========================================  ==================
 this package          role                                       reference crate
@@ -28,14 +28,14 @@ this package          role                                       reference crate
 ``rns``               RNS basis + fast base conversion           primus_rns
 ``decompose``         approximate signed gadget decomposition    primus_decompose
 ``lattice``           ciphertext containers + composite ops      primus_lattice
-``ops``               Pallas/MXU kernels (the "native" layer)    the SIMD backends
-``parallel``          mesh sharding / collectives                (new; TPU-native)
+``parallel``          mesh sharding / collectives                (new)
 ``boot``              blind-rotation bootstrapping pipeline      (new; composed)
 ====================  =========================================  ==================
 
 Unlike the reference (single-thread Rust + AVX), every hot path here is a
-JAX program: elementwise u32 limb arithmetic on the VPU, matmul-form NTTs on
-the MXU, and RNS-residue/coefficient sharding over a ``jax.sharding.Mesh``.
+JAX program that XLA compiles for the device: elementwise u32 limb
+arithmetic, staged NTT butterflies, and RNS-residue/coefficient sharding
+over a ``jax.sharding.Mesh``.
 Deterministic integer semantics are preserved end-to-end: no float drift,
 bit-exact against the reference's conventions.
 """

@@ -2,7 +2,7 @@
 
 The reference stops at the external product + LWE extraction — "callers are
 expected to compose blind rotation etc." (SURVEY.md §1).  This module is
-that composition, built TPU-first:
+that composition:
 
 1. **modulus switch**: LWE coefficients mod 2^32 -> rounded mod 2N,
 2. **blind rotate**: ``acc <- CMux(BSK_i, acc * X^{a_i}, acc)`` over the
@@ -47,9 +47,9 @@ def _rotate_glwe(glwe, degree, n: int):
     with trailing 1-axes added by the caller).
 
     Implemented as a chain of *conditional static negacyclic shifts*, one
-    per bit of ``degree mod 2N`` — static slices + selects, which TPUs
-    execute as cheap vector copies, instead of a minor-axis gather (slow
-    scalar loop on TPU).  ``X^N = -1`` makes the top bit a plain negation.
+    per bit of ``degree mod 2N`` — static slices + selects instead of a
+    data-dependent gather.  ``X^N = -1`` makes the top bit a plain
+    negation.
     """
     d = jnp.asarray(degree, jnp.int32) % (2 * n)
     v = glwe
@@ -78,13 +78,8 @@ def blind_rotate(
     ``acc = (0, v * X^{-b})``; for each mask element
     ``acc <- acc + (acc * X^{a_i} - acc) ⊡ BSK_i``.
     """
-    if isinstance(bsk_ntt, (tuple, list)):  # MXU key pack (vals, precons)
-        n_lwe = bsk_ntt[0].shape[0]
-        kp, k1, level, k1b = bsk_ntt[0].shape[1:5]
-        n = bsk_ntt[0].shape[5] * bsk_ntt[0].shape[6]
-    else:
-        n_lwe = bsk_ntt.shape[0]
-        kp, k1, level, k1b, n = bsk_ntt.shape[1:]
+    n_lwe = bsk_ntt.shape[0]
+    kp, k1, level, k1b, n = bsk_ntt.shape[1:]
     batch = lwe_switched.shape[:-1]
 
     b = lwe_switched[..., n_lwe]
@@ -92,49 +87,8 @@ def blind_rotate(
     acc = jnp.zeros(batch + (k1, n), dtype=_U32)
     acc = acc.at[..., -1, :].set(v_rot)
 
-    use_mxu = isinstance(bsk_ntt, (tuple, list))
-    use_fused = getattr(conv, "use_pallas", False) and not use_mxu
-
-    if use_mxu:
-        # single-kernel MXU CMux scan in four-step natural layout — the
-        # accumulator never leaves the (poly*A, B) layout between steps
-        # (see ops/cmux_mxu.py)
-        from ..ops.cmux_mxu import get_plan, mxu_cmux_step_nat
-
-        kv, kpre = bsk_ntt
-        plan = get_plan(conv.log_n, tuple(conv.primes), conv.product)
-        crt = plan.crt_consts(conv.product)
-        A, B = plan.A, plan.B
-        acc_nat = acc.reshape((-1, k1, A, B))
-        bsz = acc_nat.shape[0]
-        level = basis.decompose_length
-
-        def body_mxu(a, x):
-            a_i, kv_i, kp_i = x
-            d3 = jnp.asarray(a_i, jnp.int32).reshape(-1)
-            d3 = jnp.broadcast_to(d3, (bsz,)) % (2 * n)
-            return (
-                mxu_cmux_step_nat(
-                    plan, basis, crt, a, d3, kv_i, kp_i, k1, level
-                ),
-                None,
-            )
-
-        a_t = jnp.moveaxis(lwe_switched[..., :n_lwe], -1, 0)
-        acc_nat, _ = jax.lax.scan(body_mxu, acc_nat, (a_t, kv, kpre))
-        return acc_nat.reshape(batch + (k1, n))
-
     def body(acc, x):
         a_i, bsk_i = x
-        if use_fused:
-            # fully fused two-kernel step (rotate+decompose+lift+NTT, then
-            # MAC+INTT+CRT+add) — see ops/cmux_fused.py
-            from ..ops.cmux_fused import fused_cmux_step
-
-            acc3 = acc.reshape((-1, k1, n))
-            d3 = jnp.asarray(a_i, jnp.int32).reshape(-1)
-            d3 = jnp.broadcast_to(d3, acc3.shape[:1]) % (2 * n)
-            return fused_cmux_step(conv, basis, acc3, d3, bsk_i).reshape(acc.shape), None
         deg = a_i[..., None] if batch else a_i  # broadcast over k+1
         rotated = _rotate_glwe(acc, deg, n)
         delta = external_product(conv, basis, rotated - acc, bsk_i)
@@ -150,9 +104,8 @@ def make_bootstrap_key(key, lwe_secret, glwe_secret, basis, gaussian, conv):
     """BSK_i = GGSW(s_i) under the GLWE secret, stacked ``(n_lwe, ...)``.
 
     ``lwe_secret``: (n_lwe,) bits as uint32.  Jitted end-to-end: the
-    n_lwe-fold vmapped GGSW encryption is one compiled program (eager
-    execution dispatches thousands of tiny ops — minutes over a remote
-    TPU link).
+    n_lwe-fold vmapped GGSW encryption is one compiled program instead of
+    thousands of eager dispatches.
     """
     from ..lattice.tfhe import ggsw_encrypt_torus
 
@@ -165,29 +118,6 @@ def make_bootstrap_key(key, lwe_secret, glwe_secret, basis, gaussian, conv):
     # (kp, ..., N), so move the prime axis behind the BSK index.
     f = conv.forward(ggsw_all)
     return jnp.moveaxis(f, 0, 1)
-
-
-@functools.partial(jax.jit, static_argnums=(3, 4, 5))
-def _bsk_coeff(key, lwe_secret, glwe_secret, basis, gaussian, conv):
-    from ..lattice.tfhe import ggsw_encrypt_torus
-
-    n_lwe = lwe_secret.shape[0]
-    keys = jax.random.split(key, n_lwe)
-    return jax.vmap(
-        lambda kk, s_i: ggsw_encrypt_torus(kk, s_i, glwe_secret, basis, gaussian, conv)
-    )(keys, lwe_secret)  # (n_lwe, k+1, L, k+1, N)
-
-
-def make_bootstrap_key_mxu(key, lwe_secret, glwe_secret, basis, gaussian, conv):
-    """BSK for the MXU CMux path: ``(vals, precons)`` in the byte-radix
-    four-step's natural NTT order plus device-exact Shoup precons
-    (``ops/cmux_mxu.prepare_mxu_bsk``).  Same GGSW material as
-    :func:`make_bootstrap_key` — only the transform order and the
-    precomputed multiplier tables differ."""
-    from ..ops.cmux_mxu import prepare_mxu_bsk
-
-    ggsw_all = _bsk_coeff(key, lwe_secret, glwe_secret, basis, gaussian, conv)
-    return prepare_mxu_bsk(conv, ggsw_all)
 
 
 def test_polynomial(n: int, message_bits: int) -> np.ndarray:

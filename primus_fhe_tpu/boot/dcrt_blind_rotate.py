@@ -28,7 +28,7 @@ from ..lattice.dcrt import crt_glwe_mul_dcrt_ggsw
 from ..modular.modops import add64, mul64, sub64
 from ..numeric.limb import U64
 from ..rns.base import RNSBase64
-from ..transforms.dcrt import DcrtPlan64, dcrt_inverse64_fast, dcrt_monomial64
+from ..transforms.dcrt import DcrtPlan64, dcrt_inverse64, dcrt_monomial64
 
 _U32 = jnp.uint32
 
@@ -49,8 +49,8 @@ def _rotate_core(
     acc0,  # U64 (n_mod, B, k+1, N) — initial accumulators, NTT domain
 ) -> U64:
     """Batched rotation in the residue-major internal layout: the whole
-    ciphertext batch rides ONE fused-NTT call per modulus per step (vs the
-    reference's one-ciphertext loop, glwe/dcrt.rs:178-343)."""
+    ciphertext batch rides ONE batched NTT per step (vs the reference's
+    one-ciphertext loop, glwe/dcrt.rs:178-343)."""
     n_lwe = bsk.lo.shape[0]
     n = plan.n
     m = _m_bc(rns_base, 3)
@@ -66,7 +66,7 @@ def _rotate_core(
         mo = U64(mono.lo[:, :, None, :], mono.hi[:, :, None, :])
         rotated = mul64(acc, mo, m)
         diff_ntt = sub64(rotated, acc, m.value)
-        diff = dcrt_inverse64_fast(plan, diff_ntt)  # (n_mod, B, k+1, N)
+        diff = dcrt_inverse64(plan, diff_ntt)  # (n_mod, B, k+1, N)
         delta = crt_glwe_mul_dcrt_ggsw(
             diff, U64(bsk_lo, bsk_hi), basis, plan, rns_base
         )
@@ -101,7 +101,7 @@ def dcrt_blind_rotate_batched(plan, basis, rns_base, bsk, lwe_batch, acc_batch: 
     """Batched RNS blind rotation: ``lwe_batch (B, n_lwe+1)``,
     ``acc_batch U64 (B, n_mod, k+1, N)`` — the batch is moved inside the
     residue-major layout so every per-modulus NTT transforms ``B*(k+1)``
-    polynomials in one fused kernel call (the bootstrap key is shared)."""
+    polynomials in one batched call (the bootstrap key is shared)."""
     acc0 = U64(
         jnp.swapaxes(acc_batch.lo, 0, 1), jnp.swapaxes(acc_batch.hi, 0, 1)
     )

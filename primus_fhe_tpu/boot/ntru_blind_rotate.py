@@ -77,19 +77,6 @@ class NtruContext:
     def n(self) -> int:
         return self.plan.n
 
-    @property
-    def pallas_plan(self):
-        """Fused VPU butterfly plan (ops/ntt_pallas.py), built lazily —
-        the NTRU fast tier on TPU."""
-        got = getattr(self, "_pallas_plan", None)
-        if got is None:
-            from ..ops.ntt_pallas import PallasNttPlan32
-
-            got = self._pallas_plan = PallasNttPlan32(
-                self.plan.log_n, self.q_int
-            )
-        return got
-
 
 def make_ntru_context(log_n: int, q: int, log_basis: int, level: int) -> NtruContext:
     return NtruContext(log_n, q, log_basis, level)
@@ -190,46 +177,9 @@ def make_ntru_bootstrap_key(key, ctx: NtruContext, sk: NtruSecret, lwe_secret, g
     return forward32(ctx.plan, evk)
 
 
-def make_ntru_bootstrap_key_mxu(key, ctx: NtruContext, sk, lwe_secret, gaussian):
-    """EVK for the single-kernel MXU CMux path: ``(vals, precons)`` in
-    the byte-radix four-step's natural NTT order (ops/ntru_cmux_mxu.py).
-    Same NGS material as :func:`make_ntru_bootstrap_key` — only the
-    transform order and the precomputed multiplier tables differ."""
-    from ..ops.ntru_cmux_mxu import prepare_mxu_evk
-
-    n_lwe = int(lwe_secret.shape[0])
-    keys = jax.random.split(key, n_lwe)
-    evk = jax.vmap(
-        lambda kk, s_i: ngs_encrypt_bit(kk, ctx, sk, s_i, gaussian)
-    )(keys, lwe_secret)  # (n_lwe, L, N) coeff
-    return prepare_mxu_evk(ctx, evk)
-
-
 # ---------------------------------------------------------------------------
 # External product and blind rotation
 # ---------------------------------------------------------------------------
-
-
-def _ntt_fwd(ctx: NtruContext, v):
-    """Forward NTT on the fastest available tier: the fused Pallas VPU
-    butterfly kernel on TPU (ops/ntt_pallas.py, one custom call), the
-    XLA-staged butterfly elsewhere.  Batch dims are flattened for the
-    kernel's 2D layout."""
-    if jax.default_backend() == "tpu" and ctx.n >= 128:
-        from ..ops.ntt_pallas import pallas_forward32
-
-        flat = v.reshape(-1, ctx.n)
-        return pallas_forward32(ctx.pallas_plan, flat, 1, 16).reshape(v.shape)
-    return forward32(ctx.plan, v)
-
-
-def _ntt_inv(ctx: NtruContext, v):
-    if jax.default_backend() == "tpu" and ctx.n >= 128:
-        from ..ops.ntt_pallas import pallas_inverse32
-
-        flat = v.reshape(-1, ctx.n)
-        return pallas_inverse32(ctx.pallas_plan, flat, 1, 16).reshape(v.shape)
-    return inverse32(ctx.plan, v)
 
 
 def _external_product_ntt(ctx: NtruContext, basis, acc, evk_ntt_i):
@@ -244,7 +194,7 @@ def _external_product_ntt(ctx: NtruContext, basis, acc, evk_ntt_i):
     """
     level = basis.decompose_length
     digits = basis.decompose(acc)  # (L, ..., N) canonical mod q
-    f = _ntt_fwd(ctx, digits)  # (L, ..., N) canonical
+    f = forward32(ctx.plan, digits)  # (L, ..., N) canonical
     acc_sum = None
     pending = 0
     for l in range(level):
@@ -281,14 +231,11 @@ def ntru_blind_rotate(ctx: NtruContext, evk_ntt, lwe_switched, test_poly):
     ``acc = v·X^{-b}``; per mask element
     ``acc ← acc + rot(INTT(acc ⊠ EVK_i), a_i) − INTT(acc ⊠ EVK_i)``
     — the ``(X^{a_i} − 1)`` factor is applied as a coefficient-domain
-    conditional-roll rotation AFTER the inverse NTT.  The NTT-domain
-    monomial multiply (``ψ-mono(a_i) − 1``) is mathematically free but
-    its data-dependent minor-axis gather costs ~15x the rest of the step
-    on TPU (scratch/probe_ntru_r3.py: 8.5 → 0.57 us/acc); the bit-chain
-    rolls are the TPU-native form of the same rotation.
+    conditional-roll rotation AFTER the inverse NTT, the same bit-chain
+    rotation as the RLWE path, instead of an NTT-domain monomial multiply
+    whose ordinal-root lookup is a data-dependent gather.
     """
-    use_mxu = isinstance(evk_ntt, (tuple, list))
-    n_lwe = evk_ntt[0].shape[0] if use_mxu else evk_ntt.shape[0]
+    n_lwe = evk_ntt.shape[0]
     n = ctx.n
     basis = ctx.basis
     batch = lwe_switched.shape[:-1]
@@ -296,35 +243,10 @@ def ntru_blind_rotate(ctx: NtruContext, evk_ntt, lwe_switched, test_poly):
     b = lwe_switched[..., n_lwe]
     acc = rotate_poly_q(jnp.broadcast_to(test_poly, batch + (n,)), -b, n, ctx.m.value)
 
-    if use_mxu:
-        # single-kernel MXU CMux scan in natural layout (ops/ntru_cmux_mxu)
-        from ..ops.ntru_cmux_mxu import get_ntru_plan, ntru_cmux_step_nat
-
-        kv, kpre = evk_ntt
-        plan = get_ntru_plan(ctx.plan.log_n, ctx.q_int)
-        A, B = plan.A, plan.B
-        acc_nat = acc.reshape((-1, A, B))
-        bsz = acc_nat.shape[0]
-        level = basis.decompose_length
-
-        def body_mxu(a, x):
-            a_i, kv_i, kp_i = x
-            d3 = jnp.broadcast_to(
-                jnp.asarray(a_i, jnp.int32).reshape(-1), (bsz,)
-            ) % (2 * n)
-            return (
-                ntru_cmux_step_nat(plan, basis, a, d3, kv_i, kp_i, level),
-                None,
-            )
-
-        a_t = jnp.moveaxis(lwe_switched[..., :n_lwe], -1, 0)
-        acc_nat, _ = jax.lax.scan(body_mxu, acc_nat, (a_t, kv, kpre))
-        return acc_nat.reshape(batch + (n,))
-
     def body(acc, x):
         a_i, evk_i = x
         ep = _external_product_ntt(ctx, basis, acc, evk_i)  # NTT domain
-        delta = _ntt_inv(ctx, ep)
+        delta = inverse32(ctx.plan, ep)
         rot = rotate_poly_q(delta, a_i, n, ctx.m.value)
         return add32(acc, sub32(rot, delta, ctx.m.value), ctx.m.value), None
 

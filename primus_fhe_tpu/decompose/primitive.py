@@ -12,7 +12,7 @@ incoming carry, and branches into a signed digit plus the next carry:
                = temp                     otherwise
 
 The carry chain is sequential in `level` but level is tiny and static, so
-the TPU build unrolls it (SURVEY.md §7 hard part 5) while vectorizing over
+the device program unrolls it (SURVEY.md §7 hard part 5) while vectorizing over
 every coefficient of every polynomial at once.
 """
 

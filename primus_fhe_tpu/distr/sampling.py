@@ -7,7 +7,7 @@ sigma or Ziggurat otherwise (``src/discrete_gaussian/mod.rs:25-87``), plus
 CRT-replicated sampling (``src/common.rs:129-350``) that writes the same
 logical value into every modulus slot.
 
-TPU design (SURVEY.md §7 hard part 6): the CDT lookup vectorizes as a
+Device design (SURVEY.md §7 hard part 6): the CDT lookup vectorizes as a
 ``searchsorted`` gather and is exact to 64-bit CDF resolution, so it is the
 on-device sampler for the small-sigma regime (σ ≲ 100 — every key/GLWE
 noise the shipped profiles use); Ziggurat's data-dependent rejection loop

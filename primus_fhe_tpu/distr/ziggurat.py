@@ -11,7 +11,7 @@ Reference capabilities matched (NOT ported):
   and ``decimal`` supplies high-precision ``exp``, so this is a dependency-
   free equivalent.
 
-TPU design: data-dependent rejection loops defeat XLA, and large-sigma
+Design: data-dependent rejection loops defeat XLA, and large-sigma
 sampling only happens host-side (key/noise generation), so both samplers
 are **numpy batch-rejection** designs — draw a whole batch of candidates,
 keep the accepted ones, redraw only the shortfall — instead of the

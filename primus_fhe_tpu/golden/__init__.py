@@ -2,7 +2,7 @@
 
 Translation of the reference's test strategy (SURVEY.md section 4): the
 generic ``UintNttTable`` is the oracle for the optimized tables; here a
-pure-Python arbitrary-precision model is the oracle for the JAX/Pallas
+pure-Python arbitrary-precision model is the oracle for the JAX
 kernels.  Everything in this package is exact integer math, deliberately
 slow, and never imported by the device path.
 """

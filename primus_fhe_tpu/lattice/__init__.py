@@ -1,7 +1,7 @@
 """Lattice ciphertext layer: containers as shape conventions + composite ops.
 
 The reference generates its container grid with 14 macros over flat buffers
-(``crates/primus_lattice/src/macros/mod.rs``); the TPU-native analogue is a
+(``crates/primus_lattice/src/macros/mod.rs``); the analogue here is a
 *layout convention* over jnp arrays — no wrapper types to fight the pytree
 machinery:
 

@@ -32,12 +32,7 @@ from ..decompose.big_integer import BigUintApproxSignedBasis
 from ..modular.modops import add64, mul64
 from ..numeric.limb import U64
 from ..rns.base import RNSBase64
-from ..transforms.dcrt import (
-    DcrtPlan64,
-    dcrt_forward64,
-    dcrt_forward64_fast,
-    dcrt_inverse64,
-    )
+from ..transforms.dcrt import DcrtPlan64, dcrt_forward64, dcrt_inverse64
 
 _U32 = jnp.uint32
 
@@ -53,7 +48,7 @@ def _digits_to_dcrt(digit_u32, basis, rns_base, plan, out_factor=1):
     ``U64 (n_mod, ..., N)`` via the centered lift (base.rs:279)."""
     d64 = U64(digit_u32, jnp.zeros_like(digit_u32))
     residues = rns_base.wrapping_decompose_small(d64, basis.basis)
-    return dcrt_forward64_fast(plan, residues, out_factor)
+    return dcrt_forward64(plan, residues, out_factor)
 
 
 @functools.partial(jax.jit, static_argnums=(3, 5))
@@ -69,7 +64,7 @@ def add_dcrt_glev_mul_crt_poly(
 
     Rank-polymorphic over batch dims between the residue and coefficient
     axes: every NTT call then carries the whole ``batch*(k+1)`` poly block
-    in ONE fused-kernel invocation (the TPU-side answer to the reference's
+    in ONE batched transform (the answer to the reference's
     one-ciphertext-at-a-time loop)."""
     extra = crt_poly.lo.ndim - 2  # batch dims between n_mod and N
     k1 = acc.lo.shape[-2]

@@ -3,7 +3,7 @@
 Reference: ``crates/primus_lattice/src/glwe/*.rs``.  The torus variant uses
 wrapping u32 arithmetic (NativeModulus) as in TFHE; negacyclic products go
 through the exact CRT-NTT convolver (:mod:`..transforms.torus`) instead of
-the reference's f64 FFT — bit-deterministic on TPU.
+the reference's f64 FFT — bit-deterministic on every backend.
 """
 
 from __future__ import annotations

@@ -8,7 +8,7 @@ LWE->LWE switch the bootstrap pipeline needs after sample extraction:
     switch(c) : out = (0, b) - sum_{i,l} d_l(a_i) * KSK[i, l]
 
 where ``d_l`` is the signed gadget decomposition of each mask coefficient.
-All (i, l) contributions are one tensor contraction — MXU-friendly.
+All (i, l) contributions are one tensor contraction.
 """
 
 from __future__ import annotations
@@ -40,8 +40,6 @@ def make_keyswitch_key(key, secret_in, secret_out, basis: ApproxSignedBasis32, g
         [s & 0xFFFFFFFF for s in basis.scalars], dtype=_U32
     )  # (level,)
     msg = secret_in[:, None] * scal[None, :]  # (n_in, level)
-    # integer dot via broadcast-multiply-reduce: XLA's integer dot lowering
-    # is pathologically slow on TPU, elementwise+reduce is fast.
     b = jnp.sum(a * secret_out[None, None, :], axis=-1, dtype=_U32) + msg + e
     return jnp.concatenate([a, b[..., None]], axis=-1)
 
@@ -54,8 +52,9 @@ def key_switch(lwe, ksk, basis: ApproxSignedBasis32):
     b = lwe[..., n_in]
     digits = basis.decompose(a)  # (level, ..., n_in) torus-signed u32
     digits = jnp.moveaxis(digits, 0, -1)  # (..., n_in, level)
-    # out = sum_{i,l} d[i,l] * ksk[i,l,:]  (wrapping torus arithmetic);
-    # broadcast-multiply-reduce instead of an integer einsum (slow on TPU).
+    # out = sum_{i,l} d[i,l] * ksk[i,l,:]  (wrapping torus arithmetic) as a
+    # broadcast-multiply-reduce: XLA fuses the product into the reduction,
+    # so the (..., n_in, level, n_out+1) product is never materialised.
     acc = jnp.sum(
         digits[..., :, :, None] * ksk[None] if digits.ndim > 2 else digits[..., None] * ksk,
         axis=(-3, -2),

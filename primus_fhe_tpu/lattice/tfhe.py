@@ -125,34 +125,6 @@ def _external_product_tail(conv, f, key_ntt, batch):
     return conv.recombine(conv.inverse(acc))
 
 
-def cmux_delta(conv, basis, acc, degrees, key_ntt):
-    """``(acc * X^d - acc) ⊡ key`` — the blind-rotation step, with the
-    fused Pallas front end (rotate-diff + decompose + lift in one VMEM
-    pass) on TPU and the composed path elsewhere.
-
-    ``acc``: ``(B, k1, N)``; ``degrees``: ``(B,)`` int32 mod 2N.
-    """
-    bsz, k1, n = acc.shape
-    if getattr(conv, "use_pallas", False):
-        from ..ops.cmux_pallas import pallas_cmux_front
-        from ..ops.ntt_pallas import pallas_forward32
-
-        res = pallas_cmux_front(acc, degrees, basis, tuple(conv.primes), n)
-        f = jnp.stack(
-            [
-                pallas_forward32(p, res[i], 4)
-                for i, p in enumerate(conv.pallas_plans)
-            ]
-        )
-        return _external_product_tail(conv, f, key_ntt, (bsz,))
-    # composed fallback
-    from ..boot.blind_rotate import _rotate_glwe
-
-    deg = jnp.asarray(degrees, jnp.int32)[..., None]
-    rotated = _rotate_glwe(acc, deg, n)
-    return external_product(conv, basis, rotated - acc, key_ntt)
-
-
 # ---------------------------------------------------------------------------
 # GGSW encryption (test/bootstrap-key construction helper)
 # ---------------------------------------------------------------------------

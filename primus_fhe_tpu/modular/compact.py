@@ -6,10 +6,10 @@ wrapping-select add/sub tier exploiting ``q < 2^(BITS-2)``
 multiply/dot tier (``slice.rs``, ``simd/mul.rs``) that accumulates
 ``DOT_PRODUCT_INNER_CHUNK = 16`` widening products before reducing.
 
-TPU design, not a port:
+Design, not a port:
 
 - add/sub/double/once are single ``jnp.minimum`` selects on the wrapped
-  value (the compact trick vectorizes to one VPU op where the generic
+  value (the compact trick vectorizes to one elementwise op where the generic
   compare-subtract needs a compare + select).
 - the widening-mul tier needs no Barrett ratio *and* no 64-step bit-serial
   walk (``modops.uint_mul32``, the generic Uint tier): canonical inputs

@@ -1,12 +1,10 @@
 """ctypes bindings for the native host kernels (``native/primus_native.cpp``).
 
 The C++ library provides exact u64 modular arithmetic and the negacyclic
-NTT with conventions identical to the device path.  It serves three roles:
-
-1. fast plan precomputation at large n (root search + table fills),
-2. a second, independent golden oracle for the differential test suites
-   (Python ints ↔ C++ u128 ↔ jnp limbs must all agree bit-exactly),
-3. host-side fallbacks for environments without an accelerator.
+NTT with conventions identical to the device path, plus fast root search
+and table fills at large n.  It is a second, independent golden oracle
+for the differential test suites (Python ints ↔ C++ u128 ↔ jnp limbs must
+all agree bit-exactly); the library's device path never imports it.
 
 The shared object is built on demand with ``make`` (g++, no deps) and
 cached next to the source.

@@ -1,6 +1,6 @@
 """Device-side little-endian multi-limb big integers.
 
-The TPU analogue of the reference's ``BigUint<S>`` limb views
+The device analogue of the reference's ``BigUint<S>`` limb views
 (``crates/primus_integer/src/big_integer.rs``): a big integer is a
 ``(..., L)`` uint32 array, little-endian limbs along the trailing axis, with
 ``L`` static.  Batches of coefficients are just leading axes, so the fixed-

@@ -1,14 +1,14 @@
 """u32-limb integer kernels — the device-side ``widening_mul`` layer.
 
-TPUs have no 64-bit integer multiply, so every 62-bit modular operation is
-built from exact u32 primitives, exactly as the reference builds 64-bit
-Barrett on 128-bit intermediates (``crates/primus_integer/src/integer_traits/
+JAX integer code here stays in 32-bit lanes (no ``jax_enable_x64``), so
+every 62-bit modular operation is built from exact u32 primitives, exactly
+as the reference builds 64-bit Barrett on 128-bit intermediates (``crates/primus_integer/src/integer_traits/
 widening/``).  The invariant is *deterministic integer semantics*: every
 function here computes the mathematically exact result with uint32 wrapping
-arithmetic only — valid in jnp-traced code, Pallas kernels, and NumPy alike.
+arithmetic only — valid in jnp-traced code and NumPy alike.
 
 A 64-bit value is a ``U64(lo, hi)`` pair of uint32 arrays (structure-of-
-arrays: friendliest layout for VPU lanes and for sharding).  Host-side
+arrays: friendliest layout for vector lanes and for sharding).  Host-side
 ``numpy.uint64`` arrays convert via :func:`to_u64_pair` /
 :func:`from_u64_pair`.
 """

@@ -1,4 +1,4 @@
-"""Mesh sharding for multi-chip / multi-host TPU execution."""
+"""Mesh sharding for multi-device execution."""
 
 from .mesh import make_mesh, residue_sharding, batch_sharding, replicate
 from .coeff_sharded import (

@@ -6,23 +6,17 @@ over D devices.  Stages whose butterfly stride ``t`` is at least the shard
 size pair elements on *different* devices — but because ``t`` is then a
 multiple of the shard size, each pair sits at the *same local offset* on
 two devices, so the exchange is a pure ``ppermute`` by ``t / shard``
-device steps over ICI — no data reshuffling within shards.  All remaining
+device steps — no data reshuffling within shards.  All remaining
 stages are shard-local.
 
 Forward: the ``log2 D`` exchange stages come FIRST (t = n/2 .. shard),
-then the shard-local tail — which is exactly a full width-``shard``
-forward transform over this shard's slice of the expanded per-lane root
-tables, so it routes through the fused Pallas kernel
-(``ops.ntt_pallas.pallas_stages_forward*``) on TPU.  Inverse mirrors it:
-the shard-local stages (t = 1 .. shard/2) run FIRST through the fused
-stages-only inverse kernel, then ``log2 D`` ppermute exchange stages, the
-last fusing ``inv_n`` / ``inv_n·w`` per the single-device convention
+then the shard-local tail — a full width-``shard`` forward transform
+over this shard's slice of the expanded per-lane root tables, staged as
+roll+mask butterflies.  Inverse mirrors it: the shard-local stages
+(t = 1 .. shard/2) run FIRST, then ``log2 D`` ppermute exchange stages,
+the last fusing ``inv_n`` / ``inv_n·w`` per the single-device convention
 (crates/primus_ntt/src/ntt/prime64/table.rs:54-58) so outputs are
 bit-identical to the single-device transform.
-
-``local_impl``: ``"pallas"`` routes local stages through the fused kernel
-(interpret mode off-TPU — bit-exact but slow), ``"jnp"`` uses the staged
-roll+mask formulation (fast on the CPU mesh), ``"auto"`` picks by backend.
 """
 
 from __future__ import annotations
@@ -39,20 +33,12 @@ from ..numeric.limb import mulhi_u32
 _U32 = jnp.uint32
 
 
-def _resolve_impl(local_impl: str) -> str:
-    if local_impl == "auto":
-        return "pallas" if jax.default_backend() == "tpu" else "jnp"
-    if local_impl not in ("pallas", "jnp"):
-        raise ValueError(f"local_impl must be auto|pallas|jnp, got {local_impl!r}")
-    return local_impl
-
-
 def _shoup_lazy32(y, w, wp, q):
     return w * y - q * mulhi_u32(y, wp)
 
 
 # ---------------------------------------------------------------------------
-# Expanded per-lane tables (shared with the fused kernels' layout)
+# Expanded per-lane tables
 # ---------------------------------------------------------------------------
 
 
@@ -138,24 +124,23 @@ def coeff_sharded_forward32(
     q: int,
     values,  # (..., n) sharded on the last axis over `axis`
     tables=None,
-    local_impl: str = "auto",
 ):
     """Forward NTT with the coefficient axis sharded over ``mesh[axis]``.
 
     Returns bit-reversed canonical output with the same sharding.  The
     first ``log2 D`` stages each perform one bidirectional ``ppermute``;
-    the rest are local (fused Pallas kernel on TPU).  The compiled SPMD
-    program is cached per ``(mesh, axis, log_n, q, ndim, impl)``.
+    the rest are local.  The compiled SPMD program is cached per
+    ``(mesh, axis, log_n, q, ndim)``.
     """
     if tables is None:
         tables = _default_tables32(log_n, q)
     fwd_w, fwd_p = tables
-    fn = _fwd32_fn(mesh, axis, log_n, q, values.ndim, _resolve_impl(local_impl))
+    fn = _fwd32_fn(mesh, axis, log_n, q, values.ndim)
     return fn(values, fwd_w, fwd_p)
 
 
 @functools.lru_cache(maxsize=None)
-def _fwd32_fn(mesh: Mesh, axis: str, log_n: int, q: int, nd: int, impl: str):
+def _fwd32_fn(mesh: Mesh, axis: str, log_n: int, q: int, nd: int):
     n = 1 << log_n
     d = mesh.shape[axis]
     shard = n // d
@@ -173,7 +158,7 @@ def _fwd32_fn(mesh: Mesh, axis: str, log_n: int, q: int, nd: int, impl: str):
             delta = t // shard  # device-step of the partner
             # the butterfly pairing is an XOR-partner swap: every device
             # needs exactly the shard of device i^delta, so ONE swap
-            # permutation delivers both directions (halves ICI traffic vs
+            # permutation delivers both directions (halves link traffic vs
             # separate +delta/-delta ppermutes)
             partner = jax.lax.ppermute(v, axis, [(i ^ delta, i) for i in range(d)])
             is_x = (dev & delta) == 0
@@ -184,17 +169,7 @@ def _fwd32_fn(mesh: Mesh, axis: str, log_n: int, q: int, nd: int, impl: str):
             tx = jnp.where(x >= tqc, x - tqc, x)
             mm = _shoup_lazy32(y, w, wp, qc)
             v = jnp.where(is_x, tx + mm, tx + tqc - mm)
-        if impl == "pallas" and log_d < log_n:
-            from ..ops.ntt_pallas import pallas_stages_forward32
-
-            batch_shape = v.shape[:-1]
-            b = int(np.prod(batch_shape)) if batch_shape else 1
-            out = pallas_stages_forward32(
-                log_n - log_d, q, w_tab[log_d:], p_tab[log_d:],
-                v.reshape(b, shard), out_factor=1,
-            )
-            return out.reshape(*batch_shape, shard)
-        # jnp local stages: roll + mask within the shard
+        # local stages: roll + mask within the shard
         for s in range(log_d, log_n):
             t = n >> (s + 1)
             is_x = (iota & t) == 0
@@ -219,7 +194,6 @@ def _fwd32_fn(mesh: Mesh, axis: str, log_n: int, q: int, nd: int, impl: str):
             mesh=mesh,
             in_specs=(spec_v, spec_t, spec_t),
             out_specs=spec_v,
-            check_vma=False,  # pallas_call out_shape carries no vma info
         )
     )
 
@@ -236,24 +210,23 @@ def coeff_sharded_inverse32(
     q: int,
     values,  # (..., n) bit-reversed, [0,2q), sharded on the last axis
     tables=None,
-    local_impl: str = "auto",
 ):
     """Inverse NTT (canonical output), coefficient axis sharded.
 
-    Local stages (t = 1 .. shard/2) run first through the fused
-    stages-only kernel; the ``log2 D`` exchange stages follow, the last
+    Local stages (t = 1 .. shard/2) run first; the ``log2 D`` exchange
+    stages follow, the last
     fusing ``inv_n``/``inv_n·w``.  Bit-identical to
     :func:`transforms.ntt.inverse32`.
     """
     if tables is None:
         tables = _default_inv_tables32(log_n, q)
     inv_w, inv_p = tables
-    fn = _inv32_fn(mesh, axis, log_n, q, values.ndim, _resolve_impl(local_impl))
+    fn = _inv32_fn(mesh, axis, log_n, q, values.ndim)
     return fn(values, inv_w, inv_p)
 
 
 @functools.lru_cache(maxsize=None)
-def _inv32_fn(mesh: Mesh, axis: str, log_n: int, q: int, nd: int, impl: str):
+def _inv32_fn(mesh: Mesh, axis: str, log_n: int, q: int, nd: int):
     n = 1 << log_n
     d = mesh.shape[axis]
     shard = n // d
@@ -266,30 +239,20 @@ def _inv32_fn(mesh: Mesh, axis: str, log_n: int, q: int, nd: int, impl: str):
     def local_fn(v, w_tab, p_tab):
         dev = jax.lax.axis_index(axis)
         iota = jax.lax.broadcasted_iota(_U32, (1, shard), 1)
-        if impl == "pallas" and log_shard > 0:
-            from ..ops.ntt_pallas import pallas_stages_inverse32
-
-            batch_shape = v.shape[:-1]
-            b = int(np.prod(batch_shape)) if batch_shape else 1
-            v = pallas_stages_inverse32(
-                log_shard, q, w_tab[:log_shard], p_tab[:log_shard],
-                v.reshape(b, shard),
-            ).reshape(*batch_shape, shard)
-        else:
-            for s in range(log_shard):
-                t = 1 << s
-                is_x = (iota & t) == 0
-                w = w_tab[s, :][None]
-                wp = p_tab[s, :][None]
-                r_m = jnp.roll(v, -t, axis=-1)
-                r_p = jnp.roll(v, t, axis=-1)
-                x = jnp.where(is_x, v, r_p)
-                y = jnp.where(is_x, r_m, v)
-                sxy = x + y
-                tx = jnp.where(sxy >= tqc, sxy - tqc, sxy)
-                dd = x + tqc - y
-                mm = _shoup_lazy32(dd, w, wp, qc)
-                v = jnp.where(is_x, tx, mm)
+        for s in range(log_shard):
+            t = 1 << s
+            is_x = (iota & t) == 0
+            w = w_tab[s, :][None]
+            wp = p_tab[s, :][None]
+            r_m = jnp.roll(v, -t, axis=-1)
+            r_p = jnp.roll(v, t, axis=-1)
+            x = jnp.where(is_x, v, r_p)
+            y = jnp.where(is_x, r_m, v)
+            sxy = x + y
+            tx = jnp.where(sxy >= tqc, sxy - tqc, sxy)
+            dd = x + tqc - y
+            mm = _shoup_lazy32(dd, w, wp, qc)
+            v = jnp.where(is_x, tx, mm)
         # exchange stages: t = shard .. n/2, partner delta = t // shard
         for s in range(log_shard, log_n):
             t = 1 << s
@@ -324,7 +287,6 @@ def _inv32_fn(mesh: Mesh, axis: str, log_n: int, q: int, nd: int, impl: str):
             mesh=mesh,
             in_specs=(spec_v, spec_t, spec_t),
             out_specs=spec_v,
-            check_vma=False,  # pallas_call out_shape carries no vma info
         )
     )
 
@@ -412,19 +374,18 @@ def _u64_exchange_ctx(q: int):
     return U64, u64_add, u64_sub, u64_select, shoup, consts
 
 
-def coeff_sharded_forward64(mesh, axis, log_n, q, values, tables=None,
-                            local_impl: str = "auto"):
+def coeff_sharded_forward64(mesh, axis, log_n, q, values, tables=None):
     """U64 forward NTT with the coefficient axis sharded over the mesh.
 
     ``values``: :class:`U64` with shape ``(..., n)`` sharded on the last
     axis.  Same structure as the u32 variant: ``log2 D`` ppermute stages,
-    then shard-local stages (fused Pallas kernel on TPU); bit-identical to
+    then shard-local stages; bit-identical to
     the single-device transform.
     """
     if tables is None:
         tables = _default_tables64(log_n, q)
     fwd_w, fwd_p = tables
-    fn = _fwd64_fn(mesh, axis, log_n, q, values.lo.ndim, _resolve_impl(local_impl))
+    fn = _fwd64_fn(mesh, axis, log_n, q, values.lo.ndim)
     lo, hi = fn(values.lo, values.hi, fwd_w.lo, fwd_w.hi, fwd_p.lo, fwd_p.hi)
     from ..numeric.limb import U64
 
@@ -432,7 +393,7 @@ def coeff_sharded_forward64(mesh, axis, log_n, q, values, tables=None,
 
 
 @functools.lru_cache(maxsize=None)
-def _fwd64_fn(mesh, axis: str, log_n: int, q: int, nd: int, impl: str):
+def _fwd64_fn(mesh, axis: str, log_n: int, q: int, nd: int):
     n = 1 << log_n
     d = mesh.shape[axis]
     shard = n // d
@@ -468,17 +429,6 @@ def _fwd64_fn(mesh, axis: str, log_n: int, q: int, nd: int, impl: str):
             wp = U64(plo[s][None], phi[s][None])
             nx, ny = butterfly(x, y, w, wp)
             v = u64_select(is_x, nx, ny)
-        if impl == "pallas" and log_d < log_n:
-            from ..ops.ntt_pallas import pallas_stages_forward64
-
-            batch_shape = v.lo.shape[:-1]
-            b = int(np.prod(batch_shape)) if batch_shape else 1
-            olo, ohi = pallas_stages_forward64(
-                log_n - log_d, q,
-                U64(wlo[log_d:], whi[log_d:]), U64(plo[log_d:], phi[log_d:]),
-                v.lo.reshape(b, shard), v.hi.reshape(b, shard), out_factor=1,
-            )
-            return olo.reshape(*batch_shape, shard), ohi.reshape(*batch_shape, shard)
         for s in range(log_d, log_n):
             t = n >> (s + 1)
             is_x = (iota & t) == 0
@@ -501,24 +451,22 @@ def _fwd64_fn(mesh, axis: str, log_n: int, q: int, nd: int, impl: str):
             mesh=mesh,
             in_specs=(spec_v, spec_v, spec_t, spec_t, spec_t, spec_t),
             out_specs=(spec_v, spec_v),
-            check_vma=False,  # pallas_call out_shape carries no vma info
         )
     )
 
 
-def coeff_sharded_inverse64(mesh, axis, log_n, q, values, tables=None,
-                            local_impl: str = "auto"):
+def coeff_sharded_inverse64(mesh, axis, log_n, q, values, tables=None):
     """U64 inverse NTT (canonical output), coefficient axis sharded.
 
     ``values``: :class:`U64` bit-reversed in ``[0, 2q)``.  Local stages
-    first (fused stages-only kernel on TPU), then ppermute exchanges with
+    first, then ppermute exchanges with
     the fused ``inv_n`` final stage; bit-identical to
     :func:`transforms.ntt.inverse64`.
     """
     if tables is None:
         tables = _default_inv_tables64(log_n, q)
     inv_w, inv_p = tables
-    fn = _inv64_fn(mesh, axis, log_n, q, values.lo.ndim, _resolve_impl(local_impl))
+    fn = _inv64_fn(mesh, axis, log_n, q, values.lo.ndim)
     lo, hi = fn(values.lo, values.hi, inv_w.lo, inv_w.hi, inv_p.lo, inv_p.hi)
     from ..numeric.limb import U64
 
@@ -526,7 +474,7 @@ def coeff_sharded_inverse64(mesh, axis, log_n, q, values, tables=None,
 
 
 @functools.lru_cache(maxsize=None)
-def _inv64_fn(mesh, axis: str, log_n: int, q: int, nd: int, impl: str):
+def _inv64_fn(mesh, axis: str, log_n: int, q: int, nd: int):
     n = 1 << log_n
     d = mesh.shape[axis]
     shard = n // d
@@ -541,32 +489,19 @@ def _inv64_fn(mesh, axis: str, log_n: int, q: int, nd: int, impl: str):
         dev = jax.lax.axis_index(axis)
         iota = jax.lax.broadcasted_iota(_U32, (1, shard), 1)
         qq, tq = consts()
-        if impl == "pallas" and log_shard > 0:
-            from ..ops.ntt_pallas import pallas_stages_inverse64
-
-            batch_shape = v.lo.shape[:-1]
-            b = int(np.prod(batch_shape)) if batch_shape else 1
-            olo, ohi = pallas_stages_inverse64(
-                log_shard, q,
-                U64(wlo[:log_shard], whi[:log_shard]),
-                U64(plo[:log_shard], phi[:log_shard]),
-                v.lo.reshape(b, shard), v.hi.reshape(b, shard),
-            )
-            v = U64(olo.reshape(*batch_shape, shard), ohi.reshape(*batch_shape, shard))
-        else:
-            for s in range(log_shard):
-                t = 1 << s
-                is_x = (iota & t) == 0
-                r_m = U64(jnp.roll(v.lo, -t, -1), jnp.roll(v.hi, -t, -1))
-                r_p = U64(jnp.roll(v.lo, t, -1), jnp.roll(v.hi, t, -1))
-                x = u64_select(is_x, v, r_p)
-                y = u64_select(is_x, r_m, v)
-                w = U64(wlo[s][None], whi[s][None])
-                wp = U64(plo[s][None], phi[s][None])
-                tx = reduce_once64(u64_add(x, y), tq)
-                dd = u64_sub(u64_add(x, tq), y)
-                mm = shoup(dd, w, wp, qq)
-                v = u64_select(is_x, tx, mm)
+        for s in range(log_shard):
+            t = 1 << s
+            is_x = (iota & t) == 0
+            r_m = U64(jnp.roll(v.lo, -t, -1), jnp.roll(v.hi, -t, -1))
+            r_p = U64(jnp.roll(v.lo, t, -1), jnp.roll(v.hi, t, -1))
+            x = u64_select(is_x, v, r_p)
+            y = u64_select(is_x, r_m, v)
+            w = U64(wlo[s][None], whi[s][None])
+            wp = U64(plo[s][None], phi[s][None])
+            tx = reduce_once64(u64_add(x, y), tq)
+            dd = u64_sub(u64_add(x, tq), y)
+            mm = shoup(dd, w, wp, qq)
+            v = u64_select(is_x, tx, mm)
         for s in range(log_shard, log_n):
             t = 1 << s
             delta = t // shard
@@ -601,6 +536,5 @@ def _inv64_fn(mesh, axis: str, log_n: int, q: int, nd: int, impl: str):
             mesh=mesh,
             in_specs=(spec_v, spec_v, spec_t, spec_t, spec_t, spec_t),
             out_specs=(spec_v, spec_v),
-            check_vma=False,  # pallas_call out_shape carries no vma info
         )
     )

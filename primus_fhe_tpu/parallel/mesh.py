@@ -1,7 +1,7 @@
 """Device mesh construction and sharding specs.
 
 The reference is single-process SIMD-only (SURVEY.md §2, parallelism
-inventory); the TPU build introduces the distribution layer it lacks.  The
+inventory); this package introduces the distribution layer it lacks.  The
 two scaling axes (SURVEY.md §5) are:
 
 - ``residue``: RNS moduli / CRT primes — embarrassingly parallel through
@@ -10,9 +10,9 @@ two scaling axes (SURVEY.md §5) are:
 - ``batch``: independent ciphertexts (batched bootstrapping) — fully
   parallel, ride-along data parallelism.
 
-Coefficient-axis sharding of a *single* NTT (butterfly all-to-alls over
-ICI) is planned for very large N; at FHE sizes (N <= 2^16) a single chip
-holds the whole polynomial and residue x batch sharding saturates the pod.
+Coefficient-axis sharding of a *single* NTT (:mod:`.coeff_sharded`)
+serves very large N; at FHE sizes (N <= 2^16) a single device holds the
+whole polynomial and residue x batch sharding carries the parallelism.
 """
 
 from __future__ import annotations

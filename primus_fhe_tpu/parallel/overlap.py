@@ -25,10 +25,11 @@ and overlaps with compute:
    The k+1 input components are independent until the final accumulation,
    so their compose collectives are data-independent of each other's
    decompose->NTT->MAC level loops.  Emitting every psum up front gives
-   XLA's latency-hiding scheduler the full window: on TPU the async
-   all-reduce for component r+1 rides ICI while component r's per-residue
-   NTTs occupy the VPU.  (A single batched psum would minimize launches
-   but leave nothing to overlap; k+1 small psums maximize the pipeline.)
+   XLA's latency-hiding scheduler the full window: the async all-reduce
+   for component r+1 can run on the interconnect while component r's
+   per-residue NTTs compute.  (A single batched psum would minimize
+   launches but leave nothing to overlap; k+1 small psums maximize the
+   pipeline.)
 
 The per-level work (digit extract, centered respread, NTT, MAC) touches
 only device-local residues — zero communication, asserted by
@@ -39,7 +40,6 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..modular.factor import ShoupFactor64, factor_mul64
@@ -70,15 +70,9 @@ def _psum_bigint(partial, axis: str, n_limbs: int, q_multiples,
     axis does not divide the group, a plain halves all-reduce.
     Bit-identical in every case (all compute the unique canonical
     representative mod Q)."""
-    import os
-
     g = jax.lax.psum(1, axis)  # group size (static under jit)
     n_coeff = partial.shape[-2] if partial.ndim >= 2 else 0
     use_rs = partial.ndim >= 2 and n_coeff % int(g) == 0
-    # measurement aid (bench_scaling_model): ablate the wire while keeping
-    # every local op — the scatter becomes a static slice, the gather a
-    # tile.  Results are numerically WRONG; timing-only.
-    ablate = os.environ.get("PRIMUS_ABLATE_COMPOSE") == "1"
 
     def cond_ladder(value):
         for mult in q_multiples:
@@ -138,14 +132,9 @@ def _psum_bigint(partial, axis: str, n_limbs: int, q_multiples,
         narrow.append(w & mask_w)
     narrow = jnp.stack(narrow, axis=-1)
 
-    if ablate:
-        shard = jax.lax.slice_in_dim(
-            narrow, 0, n_coeff // int(g), axis=sc_dim
-        ) * _U32(int(g))
-    else:
-        shard = jax.lax.psum_scatter(
-            narrow, axis, scatter_dimension=sc_dim, tiled=True
-        )  # exact: D * (2^W - 1) < 2^32
+    shard = jax.lax.psum_scatter(
+        narrow, axis, scatter_dimension=sc_dim, tiled=True
+    )  # exact: D * (2^W - 1) < 2^32
 
     # local carry walk over W-bit limb sums; the final carry is one extra
     # word at offset n_w*W (total < D*Q, bounded by the narrow_ok check)
@@ -170,12 +159,9 @@ def _psum_bigint(partial, axis: str, n_limbs: int, q_multiples,
     # gather only the packed canonical words; top words of the full-width
     # layout are identically zero (value < Q < 2^q_bits)
     n_out = -(-int(q_bits) // 32)
-    if ablate:
-        gathered = jnp.concatenate([value[..., :n_out]] * int(g), axis=sc_dim)
-    else:
-        gathered = jax.lax.all_gather(
-            value[..., :n_out], axis, axis=sc_dim, tiled=True
-        )
+    gathered = jax.lax.all_gather(
+        value[..., :n_out], axis, axis=sc_dim, tiled=True
+    )
     if n_out < n_limbs:
         pad = jnp.zeros(gathered.shape[:-1] + (n_limbs - n_out,), _U32)
         gathered = jnp.concatenate([gathered, pad], axis=-1)
@@ -183,16 +169,14 @@ def _psum_bigint(partial, axis: str, n_limbs: int, q_multiples,
 
 
 def _make_gadget_local(axis, basis, plan_def, m_loc, L, level, small_mod,
-                       q_multiples, q_ext, half_u, sm_u, use_mxu, dyn_shapes,
-                       q_bits=None):
+                       q_multiples, q_ext, half_u, sm_u, q_bits=None):
     """The per-device gadget-product body, reusable from other shard_map
     programs (the sharded blind rotation wraps it in a batch vmap inside
     its CMux scan).  Operands are UNBATCHED: ``glo/ghi (m_loc, k+1, N)``,
     ``klo/khi (k+1, level, m_loc, k+1, N)``; collectives reference
     ``axis`` and so must run under a mesh binding that axis name."""
 
-    def gadget_local(glo, ghi, klo, khi, mod, ipf, p_limbs, p_shift,
-                     dyn_loc, leaves):
+    def gadget_local(glo, ghi, klo, khi, mod, ipf, p_limbs, p_shift, leaves):
         local_plan = jax.tree.unflatten(plan_def, leaves)
         k1 = glo.shape[-2]
         n = glo.shape[-1]
@@ -212,8 +196,8 @@ def _make_gadget_local(axis, basis, plan_def, m_loc, L, level, small_mod,
             return value
 
         # 1. local partial composes + ALL compose psums issued up front:
-        #    each collective depends only on inputs, so on TPU the r+1
-        #    all-reduce overlaps the r-th component's NTT/MAC compute.
+        #    each collective depends only on inputs, so the r+1 all-reduce
+        #    can overlap the r-th component's NTT/MAC compute.
         bigs = [
             _psum_bigint(compose_partial(r), axis, L + 1, q_multiples,
                          q_bits)[..., :L]
@@ -242,22 +226,7 @@ def _make_gadget_local(axis, basis, plan_def, m_loc, L, level, small_mod,
             for lvl in range(level):
                 digit, carries = basis.unsigned_decompose_level(v, carries, lvl)
                 resp = respread(digit)
-                if use_mxu:
-                    from ..ops.ntt_mxu8_dyn import mxu8_dyn_forward64
-
-                    outs = [
-                        mxu8_dyn_forward64(
-                            tuple(t[i] for t in dyn_loc), dyn_shapes,
-                            U64(resp.lo[i], resp.hi[i]), 1,
-                        )
-                        for i in range(m_loc)
-                    ]
-                    f = U64(
-                        jnp.stack([o.lo for o in outs]),
-                        jnp.stack([o.hi for o in outs]),
-                    )
-                else:
-                    f = dcrt_forward64(local_plan, resp, 1)
+                f = dcrt_forward64(local_plan, resp, 1)
                 fb = U64(f.lo[:, None, :], f.hi[:, None, :])
                 g = U64(klo[r, lvl], khi[r, lvl])
                 acc = add64(acc, mul64(g, fb, m_bc), m_bc.value)
@@ -272,7 +241,6 @@ def make_sharded_gadget_product(
     basis,  # BigUintApproxSignedBasis
     plan: DcrtPlan64,
     rns_base,  # RNSBase64
-    local_ntt: str = "auto",
 ):
     """Builds the overlapped sharded external product.
 
@@ -283,12 +251,6 @@ def make_sharded_gadget_product(
     residue-sharded.  Bit-identical to
     :func:`lattice.dcrt.crt_glwe_mul_dcrt_ggsw` (dcrt.rs:178-343 parity).
     Hold onto the returned fn — it owns the compiled SPMD program.
-
-    ``local_ntt``: ``"mxu"`` routes the per-residue forward NTTs through
-    the table-driven byte-radix MXU kernel (``ops/ntt_mxu8_dyn.py`` —
-    per-residue tables ride the residue sharding, one SPMD program
-    serves every modulus); ``"jnp"`` keeps the XLA-staged path;
-    ``"auto"`` picks MXU on TPU when the moduli/shape qualify.
     """
     d = mesh.shape[axis]
     n_mod = rns_base.count
@@ -310,23 +272,6 @@ def make_sharded_gadget_product(
     half_u = U64(_U32(half & 0xFFFFFFFF), _U32((half >> 32) & 0xFFFFFFFF))
     sm_u = U64(_U32(small_mod & 0xFFFFFFFF), _U32((small_mod >> 32) & 0xFFFFFFFF))
 
-    # table-driven MXU routing for the per-residue forward NTTs
-    use_mxu = local_ntt == "mxu" or (
-        local_ntt == "auto"
-        and jax.default_backend() == "tpu"
-        and plan.log_n >= 8
-        and all((1 << 30) <= q < (1 << 62) for q in plan.moduli)
-    )
-    if use_mxu:
-        from ..ops.ntt_mxu8_dyn import stack_dyn_tables
-
-        dyn_stacked, dyn_shapes = stack_dyn_tables(plan.log_n, plan.moduli)
-        dyn_specs = tuple(
-            P(axis, *([None] * (np.ndim(t) - 1))) for t in dyn_stacked
-        )
-    else:
-        dyn_stacked, dyn_specs, dyn_shapes = (), (), None
-
     # flatten the plan so every leading-(n_mod) leaf shards; monomial_base
     # (shape (n,)) replicates.
     plan_leaves, plan_def = jax.tree.flatten(plan)
@@ -336,19 +281,14 @@ def make_sharded_gadget_product(
         for leaf in plan_leaves
     )
 
-    n_dyn = len(dyn_stacked)
-
     gadget_local = _make_gadget_local(
         axis, basis, plan_def, m_loc, L, level, small_mod,
-        q_multiples, q_ext, half_u, sm_u, use_mxu, dyn_shapes,
-        q_bits=q_prod.bit_length(),
+        q_multiples, q_ext, half_u, sm_u, q_bits=q_prod.bit_length(),
     )
 
-    def local_fn(glo, ghi, klo, khi, mod, ipf, p_limbs, p_shift, *rest):
-        dyn_loc = rest[:n_dyn]  # per-device residue slices of dyn tables
-        leaves = rest[n_dyn:]
+    def local_fn(glo, ghi, klo, khi, mod, ipf, p_limbs, p_shift, *leaves):
         return gadget_local(
-            glo, ghi, klo, khi, mod, ipf, p_limbs, p_shift, dyn_loc, leaves
+            glo, ghi, klo, khi, mod, ipf, p_limbs, p_shift, leaves
         )
 
     sp_g = P(axis, None, None)
@@ -364,7 +304,7 @@ def make_sharded_gadget_product(
                 jax.tree.map(lambda _: sp_1, rns_base.modulus),
                 jax.tree.map(lambda _: sp_1, rns_base.inv_punctured),
                 sp_2, sp_2,
-            ) + dyn_specs + plan_specs,
+            ) + plan_specs,
             out_specs=(sp_g, sp_g),
             check_vma=False,
         )
@@ -375,7 +315,7 @@ def make_sharded_gadget_product(
             crt_glwe.lo, crt_glwe.hi, ggsw.lo, ggsw.hi,
             rns_base.modulus, rns_base.inv_punctured,
             rns_base.punctured_limbs, rns_base.punctured_limbs_shift,
-            *(jnp.asarray(t) for t in dyn_stacked), *plan_leaves,
+            *plan_leaves,
         )
         return U64(lo, hi)
 

@@ -12,10 +12,8 @@ gadget product (:mod:`.overlap`):
   lanes, W = 32 - ceil(log2 D) — the scatter payload is the packed
   size), issued per GLWE component ahead of the level compute;
 * per-residue NTTs (the inverse bringing the CMux diff to coefficients
-  and the forward per gadget digit) route through the table-driven
-  byte-radix MXU kernels (:mod:`..ops.ntt_mxu8_dyn`) on TPU — per-device
-  residue tables ride the residue sharding, ONE SPMD program serves
-  every modulus — or the XLA-staged path elsewhere (``local_ntt``).
+  and the forward per gadget digit) run on each device's residue slice
+  of the plan tables — zero communication.
 
 Bit-identical to :func:`..boot.dcrt_blind_rotate.dcrt_blind_rotate_batched`
 (tests/test_sharded_rotation.py).
@@ -27,7 +25,6 @@ import functools
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..modular.modops import add64, mul64, sub64
@@ -46,7 +43,6 @@ def make_sharded_blind_rotation(
     basis,  # BigUintApproxSignedBasis
     plan,  # DcrtPlan64
     rns_base,  # RNSBase64
-    local_ntt: str = "auto",
 ):
     """Builds ``fn(bsk, lwe, acc) -> U64`` with the layouts of
     ``dcrt_blind_rotate_batched``: ``bsk (n_lwe, k+1, L, n_mod, k+1, N)``
@@ -71,43 +67,18 @@ def make_sharded_blind_rotation(
     half_u = U64(_U32(half & 0xFFFFFFFF), _U32((half >> 32) & 0xFFFFFFFF))
     sm_u = U64(_U32(small_mod & 0xFFFFFFFF), _U32((small_mod >> 32) & 0xFFFFFFFF))
 
-    use_mxu = local_ntt == "mxu" or (
-        local_ntt == "auto"
-        and jax.default_backend() == "tpu"
-        and plan.log_n >= 8
-        and all((1 << 30) <= q < (1 << 62) for q in plan.moduli)
-    )
-    if use_mxu:
-        from ..ops.ntt_mxu8_dyn import stack_dyn_inv_tables, stack_dyn_tables
-
-        dyn_f, dyn_shapes = stack_dyn_tables(plan.log_n, plan.moduli)
-        dyn_i, _ = stack_dyn_inv_tables(plan.log_n, plan.moduli)
-        dyn_stacked = dyn_f + dyn_i
-        n_dyn_f = len(dyn_f)
-        dyn_specs = tuple(
-            P(r_axis, *([None] * (np.ndim(t) - 1))) for t in dyn_stacked
-        )
-    else:
-        dyn_stacked, dyn_specs, dyn_shapes, n_dyn_f = (), (), None, 0
-
     plan_leaves, plan_def = jax.tree.flatten(plan)
     mono_ids = {id(plan.monomial_base)}
     plan_specs = tuple(
         P(None) if id(leaf) in mono_ids else P(r_axis, *([None] * (leaf.ndim - 1)))
         for leaf in plan_leaves
     )
-    n_dyn = len(dyn_stacked)
-
     gadget_local = _make_gadget_local(
         r_axis, basis, plan_def, m_loc, L, level, small_mod,
-        q_multiples, q_ext, half_u, sm_u, use_mxu, dyn_shapes,
-        q_bits=q_prod.bit_length(),
+        q_multiples, q_ext, half_u, sm_u, q_bits=q_prod.bit_length(),
     )
 
-    def local_fn(blo, bhi, lwe, alo, ahi, mod, ipf, p_limbs, p_shift, *rest):
-        dyn_loc_f = rest[:n_dyn_f]
-        dyn_loc_i = rest[n_dyn_f:n_dyn]
-        leaves = rest[n_dyn:]
+    def local_fn(blo, bhi, lwe, alo, ahi, mod, ipf, p_limbs, p_shift, *leaves):
         local_plan = jax.tree.unflatten(plan_def, leaves)
         n_lwe = blo.shape[0]
         n = plan.n
@@ -120,26 +91,9 @@ def make_sharded_blind_rotation(
         mb = U64(mono_b.lo[:, :, None, :], mono_b.hi[:, :, None, :])
         acc = mul64(acc, mb, m4)
 
-        def inv_ntt(x: U64) -> U64:
-            if use_mxu:
-                from ..ops.ntt_mxu8_dyn import mxu8_dyn_inverse64
-
-                outs = [
-                    mxu8_dyn_inverse64(
-                        tuple(t[i] for t in dyn_loc_i), dyn_shapes,
-                        U64(x.lo[i], x.hi[i]), 1,
-                    )
-                    for i in range(m_loc)
-                ]
-                return U64(
-                    jnp.stack([o.lo for o in outs]),
-                    jnp.stack([o.hi for o in outs]),
-                )
-            return dcrt_inverse64(local_plan, x)
-
         gadget_b = jax.vmap(
             gadget_local,
-            in_axes=(1, 1, None, None, None, None, None, None, None, None),
+            in_axes=(1, 1, None, None, None, None, None, None, None),
             out_axes=(1, 1),
         )
 
@@ -149,10 +103,9 @@ def make_sharded_blind_rotation(
             mo = U64(mono.lo[:, :, None, :], mono.hi[:, :, None, :])
             rotated = mul64(acc, mo, m4)
             diff_ntt = sub64(rotated, acc, m4.value)
-            diff = inv_ntt(diff_ntt)  # (m_loc, B_loc, k1, N) coeff
+            diff = dcrt_inverse64(local_plan, diff_ntt)  # (m_loc, B_loc, k1, N)
             dlo, dhi = gadget_b(
-                diff.lo, diff.hi, bl_i, bh_i, mod, ipf, p_limbs, p_shift,
-                dyn_loc_f, leaves,
+                diff.lo, diff.hi, bl_i, bh_i, mod, ipf, p_limbs, p_shift, leaves
             )
             return add64(acc, U64(dlo, dhi), m4.value), None
 
@@ -174,7 +127,7 @@ def make_sharded_blind_rotation(
                 jax.tree.map(lambda _: sp_1, rns_base.modulus),
                 jax.tree.map(lambda _: sp_1, rns_base.inv_punctured),
                 sp_2, sp_2,
-            ) + dyn_specs + plan_specs,
+            ) + plan_specs,
             out_specs=(sp_a, sp_a),
             check_vma=False,
         )
@@ -185,7 +138,7 @@ def make_sharded_blind_rotation(
             bsk.lo, bsk.hi, lwe, acc.lo, acc.hi,
             rns_base.modulus, rns_base.inv_punctured,
             rns_base.punctured_limbs, rns_base.punctured_limbs_shift,
-            *(jnp.asarray(t) for t in dyn_stacked), *plan_leaves,
+            *plan_leaves,
         )
         return U64(lo, hi)
 

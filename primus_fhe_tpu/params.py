@@ -56,9 +56,9 @@ TOY = TfheParams(
 # 2^100 core-SVP at any noise the gate budget can absorb — the known
 # degradation of the classic N=1024 TFHE sets (kept as BOOLEAN_TFHE_LIB
 # below).  Gate noise budget: 4-sigma pre-rotation margin ~ 1.27 by the
-# model (``tests/test_security.py``; per-gate failure ~ 1e-7) — and the
-# model itself over-predicts 1.67x vs on-chip measurement
-# (NOISE_CHECK_r05.json), so the real margin is ~2.1.
+# model (``tests/test_security.py``; per-gate failure ~ 1e-7) — and an
+# earlier measured noise check found the model over-predicts ~1.67x, so
+# the real margin is ~2.1.
 BOOLEAN_128 = TfheParams(
     log_n=11, glwe_dim=1, lwe_dim=630,
     log_basis=7, level=3, ks_log_basis=1, ks_level=12,
@@ -117,10 +117,9 @@ class NtruParams:
 # classical core-SVP; the LWE layer (fresh encryptions AND ksk rows at
 # lwe_sigma) clears the 110-bit category-1 bar (see module docstring).
 #
-# Noise-budget design, tuned against ON-CHIP measurements
-# (NOISE_CHECK_NTRU_r05.json; two-config calibration showed the NGS
-# rotation term runs ~2.2x the textbook model while the ks term tracks
-# it):
+# Noise-budget design, tuned against measured noise (a two-config
+# calibration showed the NGS rotation term runs ~2.2x the textbook model
+# while the ks term tracks it):
 # * LWE dimension/noise: the ks noise floor is (gadget factor ~66 at
 #   B=2 x L=12) * the security-minimum sigma, and that minimum falls
 #   ~3x per +50 dimensions — n_lwe=700 needs only sigma ~28
@@ -131,11 +130,10 @@ class NtruParams:
 # * ks_level=16 (drop 4): the ks DROP error multiplies the NTRU secret
 #   f = 1 + t*f' whose coefficients carry E[f^2] ~ t^2*2/3 ~ 43 (t=8),
 #   so an 8-bit drop costs eps*sqrt(N*E[f^2]/12) ~ 15.4k — the
-#   measured-constant noise floor that three on-chip configs pinned
-#   down (NOISE_CHECK_NTRU_r05.json history); at drop 4 it is ~1k.
-# Decision margin: measured on-chip 7.6 sigma
-# (NOISE_CHECK_NTRU_r05.json; ~1e-14 per-gate failure).  Enforced in
-# tests/test_security.py with the f-scaled drop term.
+#   measured-constant noise floor that three configs pinned down; at
+#   drop 4 it is ~1k.
+# Decision margin: measured 7.6 sigma (~1e-14 per-gate failure).
+# Enforced in tests/test_security.py with the f-scaled drop term.
 NTRU_128 = NtruParams(
     log_n=10, q_bits=20, lwe_dim=700,
     log_basis=3, level=6, ks_log_basis=1, ks_level=16,
@@ -170,20 +168,12 @@ class TfheContext:
     ksk: Any
 
 
-def make_context(key, params: TfheParams = TOY, bsk_kind: str = "auto") -> TfheContext:
-    """Generates secrets and evaluation keys for a parameter set.
-
-    ``bsk_kind``: ``"mxu"`` builds the single-kernel MXU CMux key pack
-    (the TPU fast path, ~2.4x gate throughput; requires log_n >= 8),
-    ``"ntt"`` the classic NTT-domain key, ``"auto"`` picks MXU on TPU.
-    ``bootstrap``/gates dispatch on the key-pack type, so either kind
-    flows through the same APIs (and ``save_keys`` requires "ntt").
-    """
+def make_context(key, params: TfheParams = TOY) -> TfheContext:
+    """Generates secrets and evaluation keys for a parameter set."""
     import jax
     import jax.numpy as jnp
 
     from .boot import make_bootstrap_key
-    from .boot.blind_rotate import make_bootstrap_key_mxu
     from .decompose import ApproxSignedBasis32
     from .distr.sampling import DiscreteGaussian
     from .lattice import keyswitch, tfhe
@@ -205,19 +195,7 @@ def make_context(key, params: TfheParams = TOY, bsk_kind: str = "auto") -> TfheC
     glwe_secret = (
         jax.random.bits(k2, (p.glwe_dim, p.n), dtype=jnp.uint32) & 1
     ).astype(jnp.uint32)
-    use_mxu = bsk_kind == "mxu" or (
-        bsk_kind == "auto"
-        and jax.default_backend() == "tpu"
-        and p.log_n >= 8
-    )
-    if use_mxu:
-        bsk = make_bootstrap_key_mxu(
-            k3, lwe_secret, glwe_secret, basis, glwe_gaussian, conv
-        )
-    else:
-        bsk = make_bootstrap_key(
-            k3, lwe_secret, glwe_secret, basis, glwe_gaussian, conv
-        )
+    bsk = make_bootstrap_key(k3, lwe_secret, glwe_secret, basis, glwe_gaussian, conv)
     ksk = keyswitch.make_keyswitch_key(
         k4, glwe_secret.reshape(-1), lwe_secret, ks_basis, gaussian
     )
@@ -232,12 +210,6 @@ def save_keys(path: str, ctx: TfheContext) -> None:
     the reference's ``impl_bytes_conversion`` for key material)."""
     import numpy as np
 
-    if isinstance(ctx.bsk, (tuple, list)):
-        raise ValueError(
-            "save_keys serializes the NTT-domain key; build the context "
-            'with bsk_kind="ntt" (the MXU key pack is a device-resident '
-            "derivative — rebuild it after load with make_bootstrap_key_mxu)"
-        )
     np.savez_compressed(
         path,
         bsk=np.asarray(ctx.bsk),

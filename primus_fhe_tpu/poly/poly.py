@@ -64,9 +64,8 @@ def poly_mul_monomial32(a, degree, q):
 
 def poly_rotate32(a, degree, q):
     """``a * X^degree`` with traced ``degree`` via bit-chain conditional
-    static rolls — the TPU-native form of the negacyclic rotation (one
-    static slice+select per bit of ``degree mod 2n``; data-dependent
-    minor-axis gathers are ~10x slower on TPU).  ``degree`` broadcasts
+    static rolls (one static slice+select per bit of ``degree mod 2n``)
+    instead of a data-dependent gather.  ``degree`` broadcasts
     against ``a.shape[:-1]``."""
     n = a.shape[-1]
     d = jnp.asarray(degree, jnp.int32) % (2 * n)

@@ -7,7 +7,7 @@ recombines via ``sum |x * (Q/q_i)^-1|_{q_i} * (Q/q_i) mod Q``
 (base.rs:574-718), and ``wrapping_decompose`` lifts small centered values
 into every modulus (base.rs:200-311).
 
-TPU design: residues live modulus-major — a CRT polynomial is a ``(k, N)``
+Design: residues live modulus-major — a CRT polynomial is a ``(k, N)``
 array, the natural shard axis (SURVEY.md §5).  The per-coefficient limb
 walks of the reference become batched limb-axis ops from
 :mod:`primus_fhe_tpu.numeric.bigint`, vectorized over all ``N`` coefficients

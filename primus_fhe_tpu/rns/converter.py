@@ -5,7 +5,7 @@ stores the output-by-input base-change matrix ``(Q/q_i) mod p_j``; a
 conversion Shoup-adjusts each input residue by ``(Q/q_i)^-1 mod q_i`` and
 takes one modular dot product per output modulus.
 
-TPU design: the dot runs over the input-residue axis for *all* coefficients
+Design: the dot runs over the input-residue axis for *all* coefficients
 at once — shape ``(in_k, N)`` -> ``(out_k, N)`` — which is precisely the
 one cross-residue (cross-shard) contraction of an otherwise embarrassingly
 parallel residue sharding (SURVEY.md §7 hard part 4).  Under a sharded mesh

@@ -2,7 +2,7 @@
 
 Reference: ``crates/primus_ntt/src/dcrt/mod.rs:19-135`` — a ``DcrtTable`` is
 one NTT table per RNS modulus; ``transform_slice`` runs one NTT per residue
-chunk.  TPU design (SURVEY.md §5): the tables stack along a leading ``(k,)``
+chunk.  Here (SURVEY.md §5) the tables stack along a leading ``(k,)``
 axis — root tables become ``(k, n)`` arrays — and one vectorized butterfly
 program transforms **all residues of all polynomials at once**, shape
 ``(k, ..., n)``.  The residue axis is the natural mesh shard axis: each
@@ -329,74 +329,3 @@ def dcrt_monomial64(plan: DcrtPlan64, degree, negate=False) -> U64:
         flip = jnp.asarray(negate, dtype=jnp.int32) * n
         idx = idx ^ flip
     return U64(plan.ordinal_roots.lo[:, idx], plan.ordinal_roots.hi[:, idx])
-
-
-# ---------------------------------------------------------------------------
-# Pallas-backed fast path: per-modulus fused kernels (cached per (log_n, q))
-# ---------------------------------------------------------------------------
-
-import functools as _functools
-
-
-@_functools.lru_cache(maxsize=None)
-def _pallas_plan64(log_n: int, q: int):
-    from ..ops.ntt_pallas import PallasNttPlan64
-
-    return PallasNttPlan64(log_n, q)
-
-
-@_functools.lru_cache(maxsize=None)
-def _mxu_plan64(log_n: int, q: int):
-    from ..ops.ntt_mxu8 import Mxu8NttPlan64
-
-    return Mxu8NttPlan64(log_n, q)
-
-
-def _mxu_ok(log_n: int, q: int) -> bool:
-    """Byte-radix MXU tier: q < 2^62 (8 planes; 7 planes when q < 2^53,
-    whose 2^56 input cap always admits lazy inputs up to 4q < 2^55;
-    4 planes when q < 2^30) and a lane-aligned split (B = 128 needs
-    log_n >= 8)."""
-    return q < (1 << 62) and log_n >= 8
-
-
-def dcrt_forward64_fast(plan: DcrtPlan64, values: U64, out_factor: int = 1) -> U64:
-    """DCRT forward that routes each modulus through the fastest fused
-    kernel on TPU — the byte-radix int8 MXU four-step (ops/ntt_mxu8.py,
-    q < 2^62 incl. the reference's 60-bit golden prime) where the
-    modulus/shape allow, else the fused VPU butterfly (ops/ntt_pallas.py);
-    a single custom call per modulus keeps enclosing scan graphs small.
-    XLA-staged path elsewhere."""
-    if jax.default_backend() == "tpu" and plan.moduli:
-        from ..ops.ntt_mxu8 import mxu8_fused_forward64
-        from ..ops.ntt_pallas import pallas_forward64
-
-        outs = []
-        for i, q in enumerate(plan.moduli):
-            v = U64(values.lo[i], values.hi[i])
-            if _mxu_ok(plan.log_n, q):
-                outs.append(mxu8_fused_forward64(_mxu_plan64(plan.log_n, q), v, out_factor))
-            else:
-                outs.append(pallas_forward64(_pallas_plan64(plan.log_n, q), v, out_factor))
-        return U64(
-            jnp.stack([o.lo for o in outs]), jnp.stack([o.hi for o in outs])
-        )
-    return dcrt_forward64(plan, values, out_factor)
-
-
-def dcrt_inverse64_fast(plan: DcrtPlan64, values: U64, out_factor: int = 1) -> U64:
-    if jax.default_backend() == "tpu" and plan.moduli:
-        from ..ops.ntt_mxu8 import mxu8_fused_inverse64
-        from ..ops.ntt_pallas import pallas_inverse64
-
-        outs = []
-        for i, q in enumerate(plan.moduli):
-            v = U64(values.lo[i], values.hi[i])
-            if _mxu_ok(plan.log_n, q):
-                outs.append(mxu8_fused_inverse64(_mxu_plan64(plan.log_n, q), v, out_factor))
-            else:
-                outs.append(pallas_inverse64(_pallas_plan64(plan.log_n, q), v, out_factor))
-        return U64(
-            jnp.stack([o.lo for o in outs]), jnp.stack([o.hi for o in outs])
-        )
-    return dcrt_inverse64(plan, values, out_factor)

@@ -6,8 +6,8 @@ N-point FFT; inverse = IFFT, conj-twist/N, round-wrap
 (``table.rs:98-130``), with the documented >2^53 precision caveat
 (``src/torus.rs:20-58``).
 
-Role in the TPU build: **test oracle and CPU compatibility only.**  TPUs
-have no fast f64, and the float path rounds; the production transform is
+Role here: **test oracle and CPU compatibility only.**  The float path
+rounds; the production transform is
 the exact integer CRT-NTT (:mod:`.torus`).  This backend is therefore
 implemented host-side in NumPy (complex128 — one rounding better than the
 reference's f64 path, differences bounded by the same analysis), used to

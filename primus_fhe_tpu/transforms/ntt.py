@@ -6,8 +6,7 @@ The XLA-fused analogue of the reference's scalar hot loop
 and the ``[0,4q)`` / ``[0,2q)`` lazy-range discipline.  The per-stage chunk
 specialization (t ∈ {8,4,2,1}) of the Rust code is unnecessary here — each
 stage is a reshape to ``(..., m, 2, t)`` plus fully vectorized elementwise
-ops, which XLA fuses; Pallas kernels in :mod:`primus_fhe_tpu.ops` keep the
-whole stage pipeline VMEM-resident for peak throughput.
+ops, which XLA fuses.
 
 Conventions (identical to the reference):
 - forward: normal-order input (``[0,4q)`` ok), bit-reversed output;

@@ -1,25 +1,20 @@
-"""Large-n fused u64 NTT (n > 2^15) via four-step composition.
+"""Large-n u64 NTT via four-step composition.
 
-The fused butterfly kernel's per-lane expanded tables cap it at n <= 2^15
-(ops/ntt_pallas.py); the reference's AVX-512 path reaches n <= 2^20
-(crates/primus_ntt/src/ntt/prime64/avx512/internal.rs:1-73).  This module
-closes that gap TPU-style: factor n = A*B and express the negacyclic
-transform as
+Factor n = A*B and express the negacyclic transform as
 
-    batched size-A negacyclic NTTs  (root psi^B — the fused kernel)
+    batched size-A negacyclic NTTs  (root psi^B)
     one elementwise Shoup twiddle   (folds the cyclic-vs-negacyclic twist)
     batched size-B negacyclic NTTs  (root psi^A)
 
-so every butterfly still runs VMEM-resident in the fused kernel and only
-the (cheap, XLA-handled) block transposes and the twiddle touch HBM.  The
-index algebra matches ``ops.mxu_common.four_step_matrices`` (same
-factorization,
-sub-transforms on the VPU instead of int8 matmuls), and the minimal-root
-convention of ``GoldenNtt`` is preserved because both sub-plans are built
-from explicit powers of the SAME top-level minimal root.
+with block transposes between the steps.  Each sub-transform is the
+staged :func:`transforms.ntt.forward64` / :func:`~transforms.ntt.inverse64`
+over a plan built from an explicit power of the SAME top-level minimal
+root, so the minimal-root convention of ``GoldenNtt`` is preserved and
+the output is bit-identical to a single size-n transform.  The reference's
+AVX-512 path reaches n <= 2^20
+(crates/primus_ntt/src/ntt/prime64/avx512/internal.rs:1-73).
 
-Valid for the full 62-bit tier q < 2^62 (the butterfly kernel's bound),
-n up to 2^30 (two <= 2^15 factors).
+Valid for the full 62-bit tier q < 2^62.
 """
 
 from __future__ import annotations
@@ -30,10 +25,11 @@ import jax
 import numpy as np
 
 from ..golden.model import minimal_primitive_root, mod_inv
-from ..numeric.limb import U64, to_u64_pair, u64_full
+from ..modular.modops import reduce_once64
+from ..numeric.limb import U64, to_u64_pair, u64_add, u64_full
 from ..utils.bits import reverse_lsbs
-from ..ops.ntt_pallas import PallasNttPlan64, pallas_forward64, pallas_inverse64
-from .ntt import _shoup_lazy64
+from .ntt import _shoup_lazy64, forward64, inverse64
+from .plan import build_plan64
 
 
 class LargeNttPlan64:
@@ -48,25 +44,13 @@ class LargeNttPlan64:
         if h1 is None:
             h1 = log_n // 2
         h2 = log_n - h1
-        if max(h1, h2) > 15:
-            raise ValueError("factors must each be <= 2^15")
         self.A = A = 1 << h1
         self.B = B = 1 << h2
         psi = minimal_primitive_root(log_n + 1, q)
         self.root = psi
         omega = psi * psi % q
-        self.plan_a = PallasNttPlan64(h1, q, root=pow(psi, B, q))
-        self.plan_b = PallasNttPlan64(h2, q, root=pow(psi, A, q))
-        # byte-radix MXU sub-plans (same explicit roots, so sub-transform
-        # outputs are bit-identical to the VPU sub-plans): the dominant
-        # cost of a large-n transform is the two batches of size-2^10ish
-        # sub-NTTs — exactly the MXU kernels' sweet spot
-        self.mxu_a = self.mxu_b = None
-        if q < (1 << 62) and min(h1, h2) >= 8:
-            from ..ops.ntt_mxu8 import Mxu8NttPlan64
-
-            self.mxu_a = Mxu8NttPlan64(h1, q, root=pow(psi, B, q))
-            self.mxu_b = Mxu8NttPlan64(h2, q, root=pow(psi, A, q))
+        self.plan_a = build_plan64(h1, q, root=pow(psi, B, q))
+        self.plan_b = build_plan64(h2, q, root=pow(psi, A, q))
 
         two_n = 2 * n
         rev1 = [reverse_lsbs(i, h1) for i in range(A)]
@@ -121,21 +105,12 @@ def large_forward64(plan: LargeNttPlan64, values: U64, out_factor: int = 1) -> U
     def t(x, shape, perm):
         return x.reshape(*shape).transpose(*perm)
 
-    mxu = jax.default_backend() == "tpu" and plan.mxu_a is not None
-
-    def sub_fwd(p, pm, v, ofac):
-        if mxu:
-            from ..ops.ntt_mxu8 import mxu8_fused_forward64
-
-            return mxu8_fused_forward64(pm, v, ofac, 32)
-        return pallas_forward64(p, v, ofac)
-
     # columns: size-A transforms over k1 (input rows k1, lanes k0)
     v = U64(
         t(values.lo, (b, A, B), (0, 2, 1)).reshape(b * B, A),
         t(values.hi, (b, A, B), (0, 2, 1)).reshape(b * B, A),
     )
-    y = sub_fwd(plan.plan_a, plan.mxu_a, v, 4)  # (b*B, A) rows k0, cols r0
+    y = forward64(plan.plan_a, v, 4)  # (b*B, A) rows k0, cols r0
 
     # twiddle in the [k0, r0] grid
     y = U64(y.lo.reshape(b, B, A), y.hi.reshape(b, B, A))
@@ -146,7 +121,8 @@ def large_forward64(plan: LargeNttPlan64, values: U64, out_factor: int = 1) -> U
         t(y.lo, (b, B, A), (0, 2, 1)).reshape(b * A, B),
         t(y.hi, (b, B, A), (0, 2, 1)).reshape(b * A, B),
     )
-    out = sub_fwd(plan.plan_b, plan.mxu_b, v2, out_factor)  # rows r0, cols r1
+    # the staged transform is canonical or [0,4q); canonical serves 2 too
+    out = forward64(plan.plan_b, v2, 4 if out_factor == 4 else 1)  # rows r0, cols r1
     return U64(
         out.lo.reshape(*batch_shape, n), out.hi.reshape(*batch_shape, n)
     )
@@ -156,23 +132,16 @@ def large_forward64(plan: LargeNttPlan64, values: U64, out_factor: int = 1) -> U
 def large_inverse64(plan: LargeNttPlan64, values: U64, out_factor: int = 1) -> U64:
     """Inverse negacyclic NTT, contract of :func:`transforms.ntt.inverse64`
     (bit-reversed input, normal-order output, ``inv_n`` folded via the
-    sub-transforms' own ``inv_A``/``inv_B`` stages)."""
+    sub-transforms' own ``inv_A``/``inv_B`` stages), but accepting the
+    forward transform's lazy ``[0,4q)`` output directly."""
     A, B, n = plan.A, plan.B, plan.n
     batch_shape = values.lo.shape[:-1]
     b = int(np.prod(batch_shape)) if batch_shape else 1
 
-    mxu = jax.default_backend() == "tpu" and plan.mxu_a is not None
-
-    def sub_inv(p, pm, v, ofac, in_factor=2):
-        if mxu:
-            from ..ops.ntt_mxu8 import mxu8_fused_inverse64
-
-            return mxu8_fused_inverse64(pm, v, ofac, 32)
-        return pallas_inverse64(p, v, ofac, 8, in_factor)
-
-    # rows: size-B inverses over r1 (input rows r0; accept [0,4q) input)
+    # rows: size-B inverses over r1 (input rows r0), [0,4q) -> [0,2q)
+    values = reduce_once64(values, u64_add(plan.qq, plan.qq))
     v = U64(values.lo.reshape(b * A, B), values.hi.reshape(b * A, B))
-    y = sub_inv(plan.plan_b, plan.mxu_b, v, 4, 4)  # (b*A, B) rows r0, cols k0
+    y = inverse64(plan.plan_b, v, 2)  # (b*A, B) rows r0, cols k0
 
     # twiddle in the [r0, k0] grid
     y = U64(y.lo.reshape(b, A, B), y.hi.reshape(b, A, B))
@@ -183,7 +152,7 @@ def large_inverse64(plan: LargeNttPlan64, values: U64, out_factor: int = 1) -> U
         y.lo.transpose(0, 2, 1).reshape(b * B, A),
         y.hi.transpose(0, 2, 1).reshape(b * B, A),
     )
-    out = sub_inv(plan.plan_a, plan.mxu_a, v2, out_factor)  # (b*B, A) cols k1
+    out = inverse64(plan.plan_a, v2, out_factor)  # (b*B, A) cols k1
     out = U64(out.lo.reshape(b, B, A), out.hi.reshape(b, B, A))
     return U64(
         out.lo.transpose(0, 2, 1).reshape(*batch_shape, n),

@@ -66,8 +66,8 @@ class NttPlan64:
         return 1 << self.log_n
 
 
-def _tables(log_n: int, q: int):
-    g = GoldenNtt(log_n, q)
+def _tables(log_n: int, q: int, root: int | None = None):
+    g = GoldenNtt(log_n, q, root=root)
     n = g.n
 
     def quot32(w):
@@ -105,11 +105,14 @@ def build_plan32(log_n: int, q: int) -> NttPlan32:
     )
 
 
-def build_plan64(log_n: int, q: int) -> NttPlan64:
-    """Builds a U64 NTT plan.  Requires prime ``q < 2^62``, ``q ≡ 1 mod 2n``."""
+def build_plan64(log_n: int, q: int, root: int | None = None) -> NttPlan64:
+    """Builds a U64 NTT plan.  Requires prime ``q < 2^62``, ``q ≡ 1 mod 2n``.
+
+    ``root`` overrides the minimal primitive ``2n``-th root (four-step
+    sub-transforms take powers of their parent's root)."""
     if q >= 1 << 62:
         raise ValueError("NttPlan64 requires q < 2^62 for the [0,4q) lazy range")
-    g, n, _, quot64, mono = _tables(log_n, q)
+    g, n, _, quot64, mono = _tables(log_n, q, root)
 
     def arr(vals):
         return to_u64_pair(np.array(vals, dtype=np.uint64))

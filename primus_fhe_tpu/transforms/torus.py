@@ -1,8 +1,8 @@
 """Exact torus negacyclic convolution via CRT-NTT.
 
-The TPU-native replacement for the reference's f64 torus FFT
-(``crates/primus_fft/src/complex64/table.rs``): TPUs have no fast f64, and
-the f64 path loses precision above 2^53 anyway (torus.rs:20-58).  Instead,
+The exact replacement for the reference's f64 torus FFT
+(``crates/primus_fft/src/complex64/table.rs``): the f64 path loses
+precision above 2^53 (torus.rs:20-58).  Instead,
 torus (mod ``2^32`` / ``2^64``) negacyclic products are computed **exactly**:
 
 1. centered lift of torus values into residues mod a few 30-bit NTT primes,
@@ -52,14 +52,9 @@ _U32 = jnp.uint32
 
 
 class TorusConvolver32:
-    """Exact negacyclic convolver for the 2^32 torus (u32 values).
+    """Exact negacyclic convolver for the 2^32 torus (u32 values)."""
 
-    ``use_pallas=None`` auto-selects the fused Pallas NTT kernels on TPU
-    (per-prime VMEM-resident transforms); elsewhere the XLA-staged DCRT
-    path runs.
-    """
-
-    def __init__(self, log_n: int, bound_bits: int = 56, use_pallas: bool | None = None):
+    def __init__(self, log_n: int, bound_bits: int = 56):
         self.log_n = log_n
         self.n = 1 << log_n
         # Pick 30-bit NTT primes until the product covers bound + 3 margin.
@@ -76,13 +71,6 @@ class TorusConvolver32:
         self.count = k = len(primes)
 
         self.plan = build_dcrt_plan32(log_n, primes)
-        if use_pallas is None:
-            use_pallas = jax.default_backend() == "tpu" and self.n >= 256
-        self.use_pallas = use_pallas
-        if use_pallas:
-            from ..ops.ntt_pallas import PallasNttPlan32
-
-            self.pallas_plans = [PallasNttPlan32(log_n, p) for p in primes]
         self.modulus = barrett32(np.array(primes, dtype=np.uint64))  # (k,)
 
         # centered-lift correction: 2^32 mod p_i
@@ -133,14 +121,6 @@ class TorusConvolver32:
     def forward(self, x, out_factor: int = 1):
         """Torus poly ``(..., n)`` -> NTT-domain residues ``(k, ..., n)``."""
         lifted = self.lift(x)
-        if self.use_pallas:
-            from ..ops.ntt_pallas import pallas_forward32
-
-            outs = [
-                pallas_forward32(p, lifted[i], out_factor)
-                for i, p in enumerate(self.pallas_plans)
-            ]
-            return jnp.stack(outs)
         return dcrt_forward32(self.plan, lifted, out_factor)
 
     def mul(self, fa, fb, extra: int):
@@ -160,13 +140,6 @@ class TorusConvolver32:
     @functools.partial(jax.jit, static_argnums=0)
     def inverse(self, res):
         """NTT-domain residues -> coefficient-domain residues, canonical."""
-        if self.use_pallas:
-            from ..ops.ntt_pallas import pallas_inverse32
-
-            outs = [
-                pallas_inverse32(p, res[i]) for i, p in enumerate(self.pallas_plans)
-            ]
-            return jnp.stack(outs)
         return dcrt_inverse32(self.plan, res)
 
     @functools.partial(jax.jit, static_argnums=0)
@@ -231,7 +204,7 @@ class TorusConvolver64:
     ``63 + log2(n * level * (k+1) * B/2)`` for an external product).
     """
 
-    def __init__(self, log_n: int, bound_bits: int = 88, use_pallas: bool | None = None):
+    def __init__(self, log_n: int, bound_bits: int = 88):
         self.log_n = log_n
         self.n = 1 << log_n
         primes: list[int] = []
@@ -248,13 +221,6 @@ class TorusConvolver64:
 
         self.plan = build_dcrt_plan32(log_n, primes)
         self.modulus = barrett32(np.array(primes, dtype=np.uint64))
-        if use_pallas is None:
-            use_pallas = jax.default_backend() == "tpu" and self.n >= 256
-        self.use_pallas = use_pallas
-        if use_pallas:
-            from ..ops.ntt_pallas import PallasNttPlan32
-
-            self.pallas_plans = [PallasNttPlan32(log_n, p) for p in primes]
 
         # centered-lift tables: 2^32 mod p and 2^64 mod p
         self.c32 = jnp.asarray(np.array([(1 << 32) % p for p in primes], dtype=np.uint32))
@@ -302,15 +268,6 @@ class TorusConvolver64:
     @functools.partial(jax.jit, static_argnums=(0, 2))
     def forward(self, x: U64, out_factor: int = 1):
         lifted = self.lift(x)
-        if self.use_pallas:
-            from ..ops.ntt_pallas import pallas_forward32
-
-            return jnp.stack(
-                [
-                    pallas_forward32(p, lifted[i], out_factor)
-                    for i, p in enumerate(self.pallas_plans)
-                ]
-            )
         return dcrt_forward32(self.plan, lifted, out_factor)
 
     def mul(self, fa, fb, extra: int):
@@ -318,12 +275,6 @@ class TorusConvolver64:
 
     @functools.partial(jax.jit, static_argnums=0)
     def inverse(self, res):
-        if self.use_pallas:
-            from ..ops.ntt_pallas import pallas_inverse32
-
-            return jnp.stack(
-                [pallas_inverse32(p, res[i]) for i, p in enumerate(self.pallas_plans)]
-            )
         return dcrt_inverse32(self.plan, res)
 
     @functools.partial(jax.jit, static_argnums=0)

@@ -1,8 +1,8 @@
 """Extended GCD and modular inverses over Python integers.
 
 Plays the role of ``primus_gcd`` (reference: ``crates/primus_gcd/src/lib.rs``,
-``Xgcd`` trait at lib.rs:28-166, Hensel ``INV_TABLE`` at lib.rs:17).  In the
-TPU build all of this runs at *plan time* on the host: table construction and
+``Xgcd`` trait at lib.rs:28-166, Hensel ``INV_TABLE`` at lib.rs:17).  Here all
+of this runs at *plan time* on the host: table construction and
 parameter derivation need a handful of inverses, never the device.  Arbitrary-
 precision Python integers make the branch-free Rust bit tricks unnecessary —
 the contracts (Bezout identity, gcd normalization, pow-2 Hensel lifting) are

@@ -1,7 +1,7 @@
 """NTT-friendly prime utilities (host-side, exact).
 
 The reference takes moduli from the caller and only *validates* them
-(``q ≡ 1 mod 2n`` checked inside table construction).  For the TPU build we
+(``q ≡ 1 mod 2n`` checked inside table construction).  Here we
 additionally provide prime-chain generation so RNS bases and test configs can
 be constructed programmatically.
 """

@@ -6,7 +6,7 @@ DCRT NTT must compile to ZERO collectives — while the CRT compose inside
 the gadget product is the one cross-residue contraction and must lower to
 residue-group collectives.  These assertions pin the partitioner's output
 so sharding regressions fail in CI rather than as silent slowdowns on a
-pod (the measured-efficiency complement lives in bench_scaling.py).
+mesh.
 """
 
 import re
@@ -31,6 +31,61 @@ _COLLECTIVES = re.compile(
 
 def _collective_ops(compiled_text: str) -> list[str]:
     return _COLLECTIVES.findall(compiled_text)
+
+
+_DTYPE_BYTES = {
+    "u8": 1, "s8": 1, "pred": 1, "u16": 2, "s16": 2, "bf16": 2, "f16": 2,
+    "u32": 4, "s32": 4, "f32": 4, "u64": 8, "s64": 8, "f64": 8,
+}
+_OP = re.compile(
+    r"=\s+(\([^)]*\)|\w+\[[\d,]*\][^ ]*)\s+"
+    r"(all-reduce|all-gather|all-to-all|collective-permute|reduce-scatter)"
+    r"(?:-start)?\("
+)
+_SHAPE = re.compile(r"(\w+)\[([\d,]*)\]")
+_GROUPS = re.compile(r"replica_groups=\{\{([^}]*)\}")
+
+
+def parse_collective_bytes(txt: str, scan_trips: int) -> dict:
+    """Tally per-device collective wire bytes from optimized-HLO text.
+    ``scan_trips`` multiplies collectives inside while bodies (the scan
+    over LWE positions prints its body once)."""
+    per_line = []
+    for line in txt.splitlines():
+        m = _OP.search(line)
+        if not m:
+            continue
+        shapes, kind = m.group(1), m.group(2)
+        size = 0
+        for dtype, dims in _SHAPE.findall(shapes):
+            if dtype not in _DTYPE_BYTES:
+                continue
+            s = _DTYPE_BYTES[dtype]
+            for d in dims.split(","):
+                if d:
+                    s *= int(d)
+            size += s
+        if not size:
+            continue
+        gm = _GROUPS.search(line)
+        g = len(gm.group(1).split(",")) if gm else 2
+        trips = scan_trips if "while" in line else 1
+        if kind == "all-reduce":
+            wire = 2 * (g - 1) / g * size
+        elif kind == "all-gather":
+            wire = (g - 1) / g * size
+        elif kind == "reduce-scatter":
+            wire = (g - 1) * size
+        else:  # collective-permute / all-to-all: send one shard
+            wire = size
+        per_line.append({"kind": kind, "wire": wire * trips})
+    by_kind: dict = {}
+    for r in per_line:
+        a = by_kind.setdefault(r["kind"], {"count": 0, "wire_bytes": 0.0})
+        a["count"] += 1
+        a["wire_bytes"] += r["wire"]
+    return {"by_kind": by_kind,
+            "total_wire_bytes": sum(r["wire"] for r in per_line)}
 
 
 @pytest.fixture(scope="module")
@@ -70,9 +125,6 @@ def test_rotation_step_collectives_are_residue_compose_only(mesh):
     """The sharded blind-rotation step communicates ONLY for the CRT
     compose: residue-group collectives present, no all-to-all, and no
     collective touches the batch (data-parallel) axis."""
-    import sys
-
-    sys.path.insert(0, "/root/repo")
     from __graft_entry__ import make_sharded_rotation_step
 
     step, (lwe, acc, bsk), _ = make_sharded_rotation_step(
@@ -157,16 +209,11 @@ def test_coeff_sharded_one_permute_per_exchange_stage(mesh):
 def test_production_step_wire_bytes_bounded(mesh):
     """Per-device collective wire bytes of the explicit production
     blind-rotation step stay within the budget behind the modeled
-    8-device efficiency (SCALING_MODEL artifact): the CRT composes run
+    8-device budget: the CRT composes run
     as reduce-scatter (16-bit halves) + all-gather (packed u32) pairs,
     ~250 KB/device per LWE scan trip.  A sharding regression that
     re-introduces redundant collectives (replicated compose all-gathers,
     double-ppermute exchanges) fails here."""
-    import os
-    import sys
-
-    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    from bench_scaling_model import parse_collective_bytes
     from __graft_entry__ import make_sharded_rotation_step
 
     step, (lwe, acc, bsk), _ = make_sharded_rotation_step(

@@ -60,17 +60,19 @@ def test_u64_violation_fails_loudly(monkeypatch):
         forward64(plan, bad, out_factor=1).lo.block_until_ready()
 
 
-def test_pallas_in_factor_contract(monkeypatch):
+def test_inverse_in_factor_contract(monkeypatch):
+    """The staged inverse takes [0,2q); the four-step inverse also takes
+    the forward's lazy [0,4q) output, because it reduces it first."""
     monkeypatch.setenv("PRIMUS_DEBUG", "1")
-    from primus_fhe_tpu.ops.ntt_pallas import PallasNttPlan64, pallas_inverse64
+    from primus_fhe_tpu.transforms import inverse64
+    from primus_fhe_tpu.transforms.ntt_large import LargeNttPlan64, large_inverse64
 
-    plan = PallasNttPlan64(LOG_N, Q64)
-    ok = _v64(shift=Q64)  # < 2q
-    pallas_inverse64(plan, ok, 1, 8, 2).lo.block_until_ready()
-    wide = _v64(shift=3 * Q64)  # < 4q: legal only when declared
-    pallas_inverse64(plan, wide, 1, 8, 4).lo.block_until_ready()
+    plan = build_plan64(LOG_N, Q64)
+    inverse64(plan, _v64(shift=Q64), out_factor=1).lo.block_until_ready()
+    wide = _v64(shift=3 * Q64)  # < 4q
+    large_inverse64(LargeNttPlan64(LOG_N, Q64), wide, 1).lo.block_until_ready()
     with pytest.raises(Exception, match="range contract"):
-        pallas_inverse64(plan, wide, 1, 4, 2).lo.block_until_ready()
+        inverse64(plan, wide, out_factor=1).lo.block_until_ready()
 
 
 def test_golden_agreement_under_debug(monkeypatch):

@@ -95,31 +95,3 @@ def test_fuzz_negacyclic_consistency():
             )
         )
         assert got.astype(object).tolist() == naive_negacyclic_mul(a, b, q)
-
-
-def test_fuzz_mxu8_random_primes():
-    """Byte-radix MXU kernels at randomly drawn primes across all three
-    plane tiers (4: q<2^30, 7: q<2^53, 8: q<2^62 incl. the guarded
-    61/62-bit general-q sums), vs the golden model."""
-    from primus_fhe_tpu.ops.ntt_mxu8 import (
-        Mxu8NttPlan64,
-        mxu8_fused_forward64,
-        mxu8_fused_inverse64,
-    )
-
-    for bits in (22, 29, 40, 52, 58, 61):
-        log_n = int(rng.choice([7, 8]))
-        q = next_ntt_prime(bits, log_n)
-        g = GoldenNtt(log_n, q)
-        plan = Mxu8NttPlan64(log_n, q)
-        n = 1 << log_n
-        a = [rng.randrange(q) for _ in range(n)]
-        av = to_u64_pair(np.array(a, dtype=np.uint64))
-        got = from_u64_pair(mxu8_fused_forward64(plan, av, 1, 2))
-        assert got.astype(object).tolist() == g.forward(a), (log_n, q)
-        back = from_u64_pair(
-            mxu8_fused_inverse64(
-                plan, to_u64_pair(np.asarray(got).astype(np.uint64)), 1, 2
-            )
-        )
-        assert back.astype(object).tolist() == a, (log_n, q)

@@ -95,30 +95,3 @@ def test_gate_composability(ctx):
         nand = nand_gate(conv, basis, bsk, ksk, ks_basis, c1, c2, LOG_N)
         result = nand_gate(conv, basis, bsk, ksk, ks_basis, nand, nand, LOG_N)
         assert _decrypt(result, lwe_s) == bool(b1 and b2), (b1, b2)
-
-
-def test_nand_gate_with_mxu_key():
-    """The MXU CMux key pack flows through the full gate pipeline
-    (bootstrap dispatches on key-pack type; log_n >= 8 required)."""
-    from primus_fhe_tpu.boot.blind_rotate import make_bootstrap_key_mxu
-
-    log_n = 8
-    n = 1 << log_n
-    basis = ApproxSignedBasis32(None, 8, reverse_length=2)
-    ks_basis = ApproxSignedBasis32(None, 8, reverse_length=3)
-    conv = tfhe.make_convolver(log_n, 2, K, 8)
-    gauss = DiscreteGaussian(3.2)
-    key = jax.random.PRNGKey(9)
-    k1, k2, k3, k4, k5 = jax.random.split(key, 5)
-    lwe_s = (jax.random.bits(k1, (N_LWE,), dtype=jnp.uint32) & 1).astype(jnp.uint32)
-    glwe_s = (jax.random.bits(k2, (K, n), dtype=jnp.uint32) & 1).astype(jnp.uint32)
-    bsk = make_bootstrap_key_mxu(k3, lwe_s, glwe_s, basis, gauss, conv)
-    ksk = keyswitch.make_keyswitch_key(k4, glwe_s.reshape(-1), lwe_s, ks_basis, gauss)
-
-    for a_bit in (False, True):
-        for b_bit in (False, True):
-            ka, kb = jax.random.split(jax.random.fold_in(k5, 2 * a_bit + b_bit))
-            ct_a = _encrypt(ka, a_bit, lwe_s)
-            ct_b = _encrypt(kb, b_bit, lwe_s)
-            out = nand_gate(conv, basis, bsk, ksk, ks_basis, ct_a, ct_b, log_n)
-            assert _decrypt(out, lwe_s) == (not (a_bit and b_bit))

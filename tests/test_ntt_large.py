@@ -149,35 +149,21 @@ def test_large_lazy_ranges():
     assert (from_u64_pair(large_forward64(plan, shifted, 1)) == canon).all()
 
 
-def test_mxu_subplans_match_vpu_subplans():
-    """The custom-root byte-radix MXU sub-plans built for the large-n
-    composition produce bit-identical sub-transforms to the VPU sub-plans
-    (same explicit psi^B / psi^A roots), so the TPU routing in
-    large_forward64/large_inverse64 cannot diverge from the tested CPU
-    path."""
-    from primus_fhe_tpu.ops.ntt_mxu8 import (
-        Mxu8NttPlan64,
-        mxu8_fused_forward64,
-        mxu8_fused_inverse64,
-    )
-    from primus_fhe_tpu.ops.ntt_pallas import (
-        pallas_forward64,
-        pallas_inverse64,
-    )
+@pytest.mark.parametrize("log_n,q", [(16, 1125899903827969), (10, Q62)])
+def test_subplans_use_parent_root_powers(log_n, q):
+    """Both sub-plans are plain staged plans over explicit powers of the
+    parent's minimal root: each matches the golden model built from that
+    same root, so the composition cannot drift from a size-n transform."""
+    from primus_fhe_tpu.transforms import forward64, inverse64
 
-    log_n, q = 16, 1125899903827969  # 50-bit, q = 1 mod 2^17
     plan = LargeNttPlan64(log_n, q)
-    assert plan.mxu_a is not None and plan.mxu_b is not None
     rng = np.random.default_rng(9)
-    for sub, sub_m, h in ((plan.plan_a, plan.mxu_a, 8), (plan.plan_b, plan.mxu_b, 8)):
-        m = 1 << h
-        # canonical outputs must be bit-equal; lazy (out_factor > 1)
-        # representatives legitimately differ between tiers mod q
-        vals = to_u64_pair(rng.integers(0, 4 * q, size=(3, m), dtype=np.uint64))
-        want = from_u64_pair(pallas_forward64(sub, vals, 1))
-        got = from_u64_pair(mxu8_fused_forward64(sub_m, vals, 1, 2))
-        assert (np.asarray(want) == np.asarray(got)).all()
-        iv = to_u64_pair(rng.integers(0, 2 * q, size=(3, m), dtype=np.uint64))
-        wanti = from_u64_pair(pallas_inverse64(sub, iv, 1, 8, 2))
-        goti = from_u64_pair(mxu8_fused_inverse64(sub_m, iv, 1, 2))
-        assert (np.asarray(wanti) == np.asarray(goti)).all()
+    for sub, root in ((plan.plan_a, pow(plan.root, plan.B, q)),
+                      (plan.plan_b, pow(plan.root, plan.A, q))):
+        g = GoldenNtt(sub.log_n, q, root=root)
+        vals = rng.integers(0, q, size=(2, sub.n), dtype=np.uint64)
+        got = from_u64_pair(forward64(sub, to_u64_pair(vals)))
+        goti = from_u64_pair(inverse64(sub, to_u64_pair(vals)))
+        for row in range(2):
+            assert [int(x) for x in got[row]] == g.forward([int(x) for x in vals[row]])
+            assert [int(x) for x in goti[row]] == g.inverse([int(x) for x in vals[row]])

@@ -44,9 +44,9 @@ def _setup(log_n=5, k1=2, log_basis=25):
     return base, basis, plan, glwe, ggsw
 
 
-@pytest.mark.parametrize("d", [1, 2])
-def test_overlapped_gadget_product_bit_exact(d):
-    base, basis, plan, glwe, ggsw = _setup()
+@pytest.mark.parametrize("d,log_n", [(1, 5), (2, 5), (2, 8)])
+def test_overlapped_gadget_product_bit_exact(d, log_n):
+    base, basis, plan, glwe, ggsw = _setup(log_n=log_n)
     ref = crt_glwe_mul_dcrt_ggsw(glwe, ggsw, basis, plan, base)
 
     mesh = make_mesh(2 * d, residue=d)
@@ -77,18 +77,3 @@ def test_overlap_collective_structure():
     n_ag = len(re.findall(r"\ball-gather\b", txt))
     assert n_rs >= k1 and n_ag >= k1, (n_rs, n_ag)
     assert "collective-permute" not in txt and "all-to-all" not in txt
-
-
-def test_overlapped_gadget_product_mxu_local_ntt():
-    """local_ntt='mxu': the table-driven byte-radix kernel serves both
-    residues from ONE SPMD program, bit-exactly (interpret mode)."""
-    base, basis, plan, glwe, ggsw = _setup(log_n=8)
-    ref = crt_glwe_mul_dcrt_ggsw(glwe, ggsw, basis, plan, base)
-
-    mesh = make_mesh(2, residue=2)
-    fn = make_sharded_gadget_product(
-        mesh, "residue", basis, plan, base, local_ntt="mxu"
-    )
-    sg, sk = shard_gadget_inputs(mesh, "residue", glwe, ggsw)
-    out = fn(sg, sk)
-    assert (from_u64_pair(out) == from_u64_pair(ref)).all()

@@ -85,16 +85,15 @@ def test_ntru_128_noise_budget_closes():
     """The decode budget must close WITH the ksk sampled at the
     LWE-layer sigma (the security-mandated level): total pre-decision
     sigma vs the q/16 boolean margin.  This enforces the MODEL floor;
-    on-chip measurement (NOISE_CHECK_NTRU_r05.json) finds the model
-    under-predicts 1.40x for NTRU, leaving a 3.6-sigma real margin —
-    see the NTRU_128 docstring for the levers if lower failure rates
-    are needed."""
+    the measured noise of the shipped profile (ks 2^1x16) runs 1.49x the
+    model, leaving a 7.6-sigma real margin — see the NTRU_128 comment for
+    the levers if lower failure rates are needed."""
     p = NTRU_128
     q = p.q
     # key switch (N -> n_lwe) at ksk noise lwe_sigma: gadget + drop.
     # The drop error multiplies the NTRU secret f = 1 + t*f' (ternary
-    # f'), E[f^2] ~ t^2 * 2/3 — NOT a binary secret's 1/2 (measured
-    # on-chip: the 8-bit-drop config's 15.4k noise floor).
+    # f'), E[f^2] ~ t^2 * 2/3 — NOT a binary secret's 1/2 (measured:
+    # the 8-bit-drop config's 15.4k noise floor).
     bks2 = float(1 << (2 * p.ks_log_basis))
     ks_gadget = p.n * p.ks_level * (bks2 / 12.0) * p.lwe_sigma**2
     drop = q.bit_length() - p.ks_log_basis * p.ks_level

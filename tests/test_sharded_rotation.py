@@ -1,7 +1,7 @@
 """Explicit shard_map DCRT blind rotation vs the auto-SPMD reference.
 
 8 virtual CPU devices, (residue=2 x batch=4) mesh: must be BIT-EXACT
-against dcrt_blind_rotate_batched for both local-NTT routings.
+against dcrt_blind_rotate_batched.
 """
 
 import numpy as np
@@ -26,8 +26,8 @@ pytestmark = [
 ]
 
 MODULI = [1125899906826241, 1125899906629633]
-# 8-plane tier: 60-bit Solinas golden prime + a general 60-bit neighbour
-# (the reference's AVX-512 range — the MXU routing must serve it)
+# 60-bit Solinas golden prime + a general 60-bit neighbour (the
+# reference's AVX-512 range)
 MODULI60 = [1152921504606830593, 1152921504606748673]
 
 
@@ -49,19 +49,19 @@ def _setup(log_n, n_lwe, batch, log_basis=25, moduli=MODULI):
     return base, basis, plan, bsk, acc, lwe
 
 
-@pytest.mark.parametrize("local_ntt,log_n,n_lwe,batch,moduli", [
-    ("jnp", 5, 4, 8, MODULI),
-    ("mxu", 8, 2, 8, MODULI),
-    ("mxu", 8, 2, 8, MODULI60),  # 8-plane dyn kernels under shard_map
+@pytest.mark.parametrize("log_n,n_lwe,batch,moduli", [
+    (5, 4, 8, MODULI),
+    (8, 2, 8, MODULI),
+    (8, 2, 8, MODULI60),
 ])
-def test_sharded_rotation_bit_exact(local_ntt, log_n, n_lwe, batch, moduli):
+def test_sharded_rotation_bit_exact(log_n, n_lwe, batch, moduli):
     base, basis, plan, bsk, acc, lwe = _setup(log_n, n_lwe, batch,
                                               moduli=moduli)
     want = dcrt_blind_rotate_batched(plan, basis, base, bsk, lwe, acc)
 
     mesh = make_mesh(8, residue=2)
     fn = make_sharded_blind_rotation(
-        mesh, "residue", "batch", basis, plan, base, local_ntt=local_ntt
+        mesh, "residue", "batch", basis, plan, base
     )
     sb, sl, sa = shard_rotation_inputs(mesh, "residue", "batch", bsk, lwe, acc)
     got = fn(sb, sl, sa)
@@ -78,7 +78,7 @@ def test_sharded_rotation_collective_structure():
     base, basis, plan, bsk, acc, lwe = _setup(5, 4, 8)
     mesh = make_mesh(8, residue=2)
     fn = make_sharded_blind_rotation(
-        mesh, "residue", "batch", basis, plan, base, local_ntt="jnp"
+        mesh, "residue", "batch", basis, plan, base
     )
     sb, sl, sa = shard_rotation_inputs(mesh, "residue", "batch", bsk, lwe, acc)
     txt = fn.compiled.lower(
